@@ -2,7 +2,7 @@
 
 Mirrors how the reference library is driven (orderParam_lib.py's inline
 driver: load an AMBER topology + trajectory, run the *Calc drivers, collect
-the *.txt histogram artifacts) on the TPU-native stack, composing the
+the *.txt histogram artifacts) on this package, composing the
 round-2 production features:
 
 - real-format front door (.prmtop / .nc / .mdcrd / .dcd route through
@@ -62,10 +62,10 @@ def main():
     hb_wat, hb_sol = hb_calc(TOP, TRAJ, output_dir=OUT)
     print(f"avg H-bonds/water = {hb_wat:.2f}")
 
-    # To shard any of the above over a TPU slice, pass a mesh:
+    # To shard any of the above over several devices, pass a mesh:
     #   from waterorderlib_tpu.parallel.mesh import make_mesh
     #   tet_order_calc(TOP, TRAJ, mesh=make_mesh(4, 2), ...)
-    # (same code on 1 chip, a v5e-8, or a spoofed 8-device CPU mesh.)
+    # (same code on one GPU, four GPUs, or a spoofed 8-device CPU mesh.)
 
     print("artifacts:", sorted(f for f in os.listdir(OUT) if f.endswith(".txt")))
 

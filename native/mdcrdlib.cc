@@ -4,7 +4,7 @@
 // fixed-width F8.3 field, 10 per line (TrajObject.py:33 in the reference
 // reads it through pytraj's compiled cpptraj stack). The pure-numpy reader
 // in waterorderlib_tpu/io/mdcrd.py decodes via `S8 -> astype(float32)`,
-// which walks a per-element strtod loop at ~60 MB/s — slower than the TPU
+// which walks a per-element strtod loop at ~60 MB/s — slower than the device
 // analysis pipeline consumes frames. This decoder streams the byte body
 // once, parsing each 8-char field with integer arithmetic, and is
 // bit-identical to strtod for fixed-point fields:

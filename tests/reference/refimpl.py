@@ -5,7 +5,7 @@ Written fresh from the documented semantics of the reference library
 /root/reference/structureLibs/water_properties.py) — NOT copied — these are
 straight-line float64 numpy translations of the *math*, kept deliberately
 simple and loop-free where possible so they are easy to audit. They serve as
-the trusted oracle that the TPU kernels are tested against.
+the trusted oracle that the device code is tested against.
 """
 
 from __future__ import annotations
@@ -102,8 +102,10 @@ def order_param_q(sub, pos, box, low=0.0, high=10.0):
     return q
 
 
-def order_param_psi(sub, pos, box, low=0.0, high=10.0):
-    """water_properties.py:393-433."""
+def order_param_psi(sub, pos, box, low=0.0, high=10.0, max_neighbors=None):
+    """water_properties.py:393-433. With `max_neighbors`, only that many
+    nearest members of each shell count (the candidate cap of a top-K
+    search)."""
     if sub.shape == pos.shape and np.array_equal(sub, pos):
         nn = all_near_neighbors(pos, box, low, high)
     else:
@@ -112,6 +114,9 @@ def order_param_psi(sub, pos, box, low=0.0, high=10.0):
     for i, apos in enumerate(sub):
         if np.sum(nn[i]) > 1:
             neigh = pos[nn[i]]
+            if max_neighbors is not None and len(neigh) > max_neighbors:
+                d = minimum_image(neigh - apos, box)
+                neigh = neigh[np.argsort(np.sum(d * d, axis=-1), kind="stable")[:max_neighbors]]
             mat = tetra_cos_ang(apos, neigh, box)
             angs = mat[np.triu_indices(len(mat), k=1)]
             z = np.mean(np.exp(6j * np.radians(angs)))
@@ -169,23 +174,44 @@ def radial_dist(pos1, pos2, box, binwidth, nbins, bulk_dens=1.0, same=False):
 
 
 def general_hbonds(acc_pos, don_pos, donh_pos, box, dist_cut, ang_cut):
-    """waterlib.f90:1156-1210 — boolean (Nacc, Ndon) H-bond matrix."""
-    na, nd = len(acc_pos), len(don_pos)
-    out = np.zeros((na, nd), dtype=bool)
-    for i in range(na):
-        for j in range(nd):
-            dv = minimum_image(don_pos[j] - acc_pos[i], box)
-            dsq = np.dot(dv, dv)
-            if dsq > dist_cut * dist_cut or dsq <= 1.0e-2:
-                continue
-            av = minimum_image(acc_pos[i] - donh_pos[j], box)
-            av = av / np.linalg.norm(av)
-            dv2 = minimum_image(don_pos[j] - donh_pos[j], box)
-            dv2 = dv2 / np.linalg.norm(dv2)
-            ang = np.degrees(np.arccos(np.clip(np.dot(av, dv2), -1.0, 1.0)))
-            if ang >= ang_cut:
-                out[i, j] = True
+    """waterlib.f90:1156-1210 — boolean (Nacc, Ndon) H-bond matrix, one
+    acceptor at a time (vectorised over the donors)."""
+    dv2 = minimum_image(don_pos - donh_pos, box)
+    dv2 = dv2 / np.linalg.norm(dv2, axis=-1, keepdims=True)
+    out = np.zeros((len(acc_pos), len(don_pos)), dtype=bool)
+    for i, a in enumerate(acc_pos):
+        dv = minimum_image(don_pos - a, box)
+        dsq = np.sum(dv * dv, axis=-1)
+        av = minimum_image(a - donh_pos, box)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            av = av / np.linalg.norm(av, axis=-1, keepdims=True)
+        ang = np.degrees(np.arccos(np.clip(np.sum(av * dv2, axis=-1), -1.0, 1.0)))
+        out[i] = (dsq <= dist_cut * dist_cut) & (dsq > 1.0e-2) & (ang >= ang_cut)
     return out
+
+
+def hbonds_per_water(top, pos, box, dist_cut=3.5, ang_cut=120.0):
+    """H-bonds of each water on one frame (float64): water-water bonds it
+    accepts or donates (through either hydrogen), plus its bonds with the
+    solute's O/N donors and acceptors."""
+    from waterorderlib_tpu.drivers.hbonds_driver import _sol_hb_triplets
+
+    wat = top.get_wat_inds()[0]
+    nw = len(wat)
+
+    def hb(a, d, dh):
+        return general_hbonds(pos[a], pos[d], pos[dh], box, dist_cut, ang_cut)
+
+    acc, don, donh = top.get_hb_inds(np.array([], int), wat)[0]
+    ww = hb(acc, don, donh)
+    tot = ww.sum(axis=1) + ww.sum(axis=0).reshape(nw, 2).sum(axis=1)
+    _, hb_o, hb_n = _sol_hb_triplets(top)
+    for s_acc, s_don, s_donh in (hb_o, hb_n):
+        if len(s_don):
+            tot = tot + hb(acc, s_don, s_donh).sum(axis=1)
+        if len(s_acc):
+            tot = tot + hb(s_acc, don, donh).sum(axis=0).reshape(nw, 2).sum(axis=1)
+    return tot
 
 
 def tetrahedral_metrics(ang_vals, n_bins=500, bin_range=(0.0, 180.0)):

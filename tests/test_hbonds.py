@@ -1,7 +1,8 @@
 """Golden tests for the H-bond kernel and graph clustering."""
 
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
 from waterorderlib_tpu.hbonds import bonds, clusters
 from waterorderlib_tpu.io.synthetic import make_water_box
@@ -85,3 +86,35 @@ def test_per_molecule_counts():
     counts = np.asarray(bonds.per_molecule_counts(mat, acc_mol, don_mol, 2))
     # mol0: acceptor row0 (1) + donor col0 (2) = 3; mol1: row1 (2) + col1 (1) = 3
     np.testing.assert_array_equal(counts, [3.0, 3.0])
+
+
+@pytest.mark.parametrize("block", [7, 64, 1000])
+def test_hbond_counts_blocked_matches_matrix_sums(block):
+    """Blocked counting = row/column sums of the dense H-bond matrix, for
+    blocks that do not divide the acceptor count and one larger than it."""
+    top, traj = make_water_box(150, n_frames=1, seed=5)
+    wat = top.get_wat_inds()[0]
+    acc, don, donh = top.get_hb_inds(np.array([], int), wat)[0]
+    p = jnp.asarray(traj.positions[0], jnp.float32)
+    box = jnp.asarray(traj.boxes[0], jnp.float32)
+    mat = np.asarray(bonds.general_hbonds(p[acc], p[don], p[donh], box, 3.5, 120.0))
+    a_cnt, d_cnt = bonds.hbond_counts(p[acc], p[don], p[donh], box, 3.5, 120.0, block=block)
+    assert mat.sum() > 0
+    np.testing.assert_array_equal(np.asarray(a_cnt), mat.sum(axis=1))
+    np.testing.assert_array_equal(np.asarray(d_cnt), mat.sum(axis=0))
+
+
+@pytest.mark.parametrize("n_acc,n_don", [(3, 0), (0, 4), (2, 300)])
+def test_hbond_counts_small_and_empty_sets(n_acc, n_don):
+    """Solute-sized and empty acceptor/donor sets (the hb_calc cross terms)."""
+    rs = np.random.RandomState(n_acc + n_don)
+    box = jnp.asarray([12.0, 12.0, 12.0], jnp.float32)
+    a = jnp.asarray(rs.uniform(0, 12, (n_acc, 3)), jnp.float32)
+    d = jnp.asarray(rs.uniform(0, 12, (n_don, 3)), jnp.float32)
+    dh = d + jnp.asarray(rs.normal(scale=0.5, size=(n_don, 3)), jnp.float32)
+    a_cnt, d_cnt = bonds.hbond_counts(a, d, dh, box, 3.5, 120.0)
+    assert a_cnt.shape == (n_acc,) and d_cnt.shape == (n_don,)
+    if n_acc and n_don:
+        mat = np.asarray(bonds.general_hbonds(a, d, dh, box, 3.5, 120.0))
+        np.testing.assert_array_equal(np.asarray(a_cnt), mat.sum(axis=1))
+        np.testing.assert_array_equal(np.asarray(d_cnt), mat.sum(axis=0))

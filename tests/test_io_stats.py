@@ -70,6 +70,23 @@ def test_synthetic_density():
     np.testing.assert_allclose(d, 0.9572, atol=1e-3)
 
 
+def test_synthetic_diffusion_msd():
+    """Lattice hops give a mean squared displacement of 6 D t, keep frame 0
+    and the oxygen sites of the static box, and leave the molecules whole."""
+    n, f, D = 512, 40, 0.23
+    _, moving = make_water_box(n, n_frames=f, seed=6, diffusion=D)
+    _, static = make_water_box(n, n_frames=1, seed=6)
+    np.testing.assert_array_equal(moving.positions[0], static.positions[0])
+    o = moving.positions[:, 0::3].astype(np.float64)
+    L = float(moving.boxes[0, 0])
+    step = np.diff(o, axis=0)
+    step -= L * np.round(step / L)
+    msd = (np.cumsum(step, axis=0)[-1] ** 2).sum(-1).mean()
+    assert abs(msd - 6 * D * (f - 1)) < 0.2 * 6 * D * (f - 1)
+    h1 = moving.positions[-1, 1::3]
+    np.testing.assert_allclose(np.linalg.norm(h1 - o[-1], axis=1), 0.9572, atol=1e-3)
+
+
 def test_block_average_shrinks_with_n():
     rs = np.random.RandomState(0)
     small = blocks.block_average(rs.normal(size=200), seed=1)

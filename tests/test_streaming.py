@@ -1,7 +1,7 @@
 """Streaming trajectory pipeline: lazy readers + chunked drivers match the
 single-shot path (histogram counts exactly; float statistics to 1-2 ulp —
-XLA tiles reductions differently per compile shape on TPU, so bitwise
-equality across different batch sizes is not guaranteed there)."""
+XLA may tile reductions differently per compile shape on an accelerator,
+so bitwise equality across different batch sizes is not guaranteed there)."""
 
 import numpy as np
 

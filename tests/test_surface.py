@@ -212,3 +212,21 @@ def test_local_connections():
     assert conn_num[0, 1] == 2
     # neighborhood of atom 1 = {C, S, itself O}
     assert nC[0, 1] == 1 and nS[0, 1] == 1 and nO[0, 1] == 1
+
+
+def test_sasa_pruned_sweep_matches_brute():
+    """sasa_per_atom serves the occluder-pruned sweep when its certificate
+    holds; it must equal the brute all-occluder sweep exactly."""
+    from waterorderlib_tpu.core.geometry import sphere_points
+    from waterorderlib_tpu.io.synthetic import water_oxygen_lattice
+
+    n = 300
+    box_l = (n / 0.033456) ** (1.0 / 3.0)
+    pos = jnp.asarray(water_oxygen_lattice(n, box_l, seed=2), jnp.float32)
+    radii = jnp.full((n,), 1.5, jnp.float32)
+    box = jnp.asarray([box_l] * 3, jnp.float32)
+    areas, exposed = sasa.sasa_per_atom(pos, radii, box, n_points=240)
+    pts = jnp.asarray(sphere_points(240), jnp.float32)
+    a_ref, e_ref = sasa.sphere_surface_areas(pos, radii + 1.4, pts, box, 10)
+    np.testing.assert_array_equal(np.asarray(areas), np.asarray(a_ref))
+    np.testing.assert_array_equal(np.asarray(exposed), np.asarray(e_ref))

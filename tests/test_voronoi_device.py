@@ -3,7 +3,7 @@
 Covers the SURVEY.md §7.6 device tessellation: analytic golden (BCC ->
 truncated octahedron), degenerate-lattice handling, certified parity vs the
 host Qhull oracle, and the hybrid drop-in wrappers. The strict 1e-6 parity
-bar runs in an f64 CPU subprocess (the TPU path is f32); the in-process
+bar runs in an f64 CPU subprocess (the device path is f32); the in-process
 tests run on whatever backend pytest uses with f32 tolerances.
 """
 
@@ -12,7 +12,6 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -256,134 +255,6 @@ def test_tier_escalation_and_fallback_counts():
     np.testing.assert_allclose(vd, vh, rtol=2e-2)
 
 
-def test_pallas_topk_matches_windowed_scan():
-    """The Pallas carried-top-K candidate search (ops/pallas/voronoi_topk)
-    must agree with the XLA windowed scan: same distances, same indices at
-    strictly-ordered slots (ties may legally permute), full coverage, and
-    identical certified cell volumes end-to-end."""
-    import jax
-
-    if jax.devices()[0].platform != "tpu":
-        pytest.skip("pallas kernel needs the TPU backend")
-    import jax.numpy as jnp
-
-    from waterorderlib_tpu.ops.pallas.voronoi_topk import voronoi_topk_pallas
-    from waterorderlib_tpu.surface.voronoi_device import (
-        _NO_PBC_BOX,
-        _cells_blocked,
-        _windowed_topk,
-        mirror_points_device,
-    )
-
-    pts_np, box_l = _water_points(n=1024, seed=5)
-    pts = jnp.asarray(pts_np, jnp.float32)
-    ext = mirror_points_device(pts, box_l)
-    centers = pts
-    K = 64
-    d_p, i_p, v_p, c_p = voronoi_topk_pallas(
-        centers, ext, K, row_block=128, win=int(ext.shape[0])
-    )
-    d_w, i_w, v_w, c_w = _windowed_topk(centers, ext, K, 128, int(ext.shape[0]))
-    d_p, i_p, v_p, c_p = map(np.asarray, (d_p, i_p, v_p, c_p))
-    d_w, i_w = np.asarray(d_w), np.asarray(i_w)
-    assert v_p.all() and c_p.all()
-    np.testing.assert_allclose(d_p, d_w, atol=2e-5)
-    strict = np.ones_like(d_p, bool)
-    gap = np.abs(d_p[:, :-1] - d_p[:, 1:]) > 1e-5
-    strict[:, :-1] &= gap
-    strict[:, 1:] &= gap
-    assert ((i_p == i_w) | ~strict).all()
-
-    # end-to-end: identical certified volumes through _cells_blocked
-    box = jnp.asarray([_NO_PBC_BOX] * 3, jnp.float32)
-    out_p = _cells_blocked(
-        centers, ext, box, 32, K, 256, 1e-4, win=int(ext.shape[0]),
-        topk_impl="pallas",
-    )
-    out_w = _cells_blocked(
-        centers, ext, box, 32, K, 256, 1e-4, win=int(ext.shape[0])
-    )
-    cert = lambda o: (
-        np.asarray(o["ok_shape"])
-        & np.asarray(o["win_covered"])
-        & (np.asarray(o["nbr_dist"][:, -1]) >= 2 * np.asarray(o["r_cell"]))
-    )
-    cp, cw = cert(out_p), cert(out_w)
-    both = cp & cw
-    assert both.sum() >= 0.4 * len(pts_np)  # tier-1 f32 rate at this size
-    vp, vw = np.asarray(out_p["vol"]), np.asarray(out_w["vol"])
-    np.testing.assert_allclose(vp[both], vw[both], rtol=1e-5)
-
-
-def test_pallas_topk_interpret_matches_windowed_scan():
-    """Kernel-logic check that runs on any backend (Pallas interpret mode):
-    distances match the XLA windowed scan, full coverage, all slots valid."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from waterorderlib_tpu.ops.pallas.voronoi_topk import voronoi_topk_pallas
-    from waterorderlib_tpu.surface.voronoi_device import (
-        _windowed_topk,
-        mirror_points_device,
-    )
-
-    rs = np.random.RandomState(3)
-    n = 300
-    box_l = (n / 0.033456) ** (1.0 / 3.0)
-    pts = jnp.asarray(rs.uniform(0, box_l, (n, 3)), jnp.float32)
-    ext = mirror_points_device(pts, box_l)
-    centers = pts[:256]
-    with pltpu.force_tpu_interpret_mode():
-        d_p, i_p, v_p, c_p = voronoi_topk_pallas(
-            centers, ext, 64, row_block=128, win=int(ext.shape[0]), seg=384
-        )
-    d_w, _, _, _ = _windowed_topk(centers, ext, 64, 128, int(ext.shape[0]))
-    assert bool(jnp.all(v_p)) and bool(jnp.all(c_p))
-    np.testing.assert_allclose(np.asarray(d_p), np.asarray(d_w), atol=2e-6)
-
-
-def test_pallas_topk_fallback_logs_and_stays_correct(monkeypatch, caplog):
-    """A Mosaic/runtime failure in the Pallas candidate search must log a
-    warning and fall back to the XLA windowed scan with identical results
-    (same narrow-catch convention as the driver dispatches)."""
-    import logging
-    import types
-
-    import jax
-    import jax.numpy as jnp
-
-    import waterorderlib_tpu.ops.pallas.voronoi_topk as vt
-    from waterorderlib_tpu.surface import voronoi_device as vd
-
-    pts_np, box_l = _water_points(n=1100, seed=3)  # nc >= 256, 4P >= 4096
-    pts = jnp.asarray(pts_np, jnp.float32)
-    # reference run pinned to the XLA window path (even on a real TPU, where
-    # the dispatcher would otherwise pick the Pallas kernel and equal-distance
-    # ties could legally permute)
-    monkeypatch.setattr(vt, "fits_voronoi_topk", lambda *a, **k: False)
-    ref = vd.voronoi_cells_device(pts, box_l, len(pts_np))
-    refv = np.asarray(ref["vol"])
-    refc = np.asarray(ref["certified"])
-    monkeypatch.undo()
-
-    monkeypatch.setattr(
-        jax, "devices",
-        lambda *a, **k: [types.SimpleNamespace(platform="tpu")],
-    )
-
-    def boom(*a, **k):
-        raise jax.errors.JaxRuntimeError("simulated mosaic failure")
-
-    monkeypatch.setattr(vt, "voronoi_topk_pallas", boom)
-    with caplog.at_level(logging.WARNING, logger="waterorderlib_tpu"):
-        out = vd.voronoi_cells_device(pts, box_l, len(pts_np))
-    assert any(
-        "voronoi search path failed" in r.message for r in caplog.records
-    )
-    np.testing.assert_array_equal(np.asarray(out["vol"]), refv)
-    np.testing.assert_array_equal(np.asarray(out["certified"]), refc)
-
-
 def test_windowed_topk_matches_full_scan():
     """At sizes where the z-window engages, windowed and full-scan candidate
     search must agree on every covered cell, and coverage must be high."""
@@ -513,139 +384,6 @@ def _kernel_inputs(pts, box_l, k=32, ks=64):
     rel_parked = jnp.where(nl.valid[..., None], rel_all, park)
     is_b = jnp.any(nl.idx[:, :k] >= pts.shape[0], axis=1)
     return rel_all, rel_parked, nl, is_b
-
-
-def test_pallas_cells_interpret_matches_clip_builder():
-    """The fused cell-moments kernel (interpret mode, any backend) is
-    contract-identical to the XLA clip builder: same ok_shape flags, same
-    face combinatorics, fp-level moments."""
-    import jax
-
-    from waterorderlib_tpu.ops.pallas.voronoi_cells import voronoi_cells_pallas
-    from waterorderlib_tpu.surface import voronoi_device as vd
-
-    pts, box_l = _water_points(n=160)
-    rel_all, rel_parked, nl, is_b = _kernel_inputs(pts, box_l)
-    ref = jax.vmap(lambda r, o: vd._cell_moments_clip(r, o, 32, 1e-4))(
-        rel_all, nl.valid
-    )
-    out = voronoi_cells_pallas(
-        rel_parked, nl.valid, is_b, 32, 1e-4, interpret=True
-    )
-    ro = np.asarray(ref["ok_shape"])
-    po = np.asarray(out["ok_shape"])
-    assert (ro ^ po).sum() == 0
-    assert (np.asarray(ref["extra_cut"]) ^ np.asarray(out["extra_cut"])).sum() == 0
-    both = ro & po
-    assert both.sum() >= 100
-    for key in ("vol", "area", "r_cell"):
-        np.testing.assert_allclose(
-            np.asarray(out[key])[both], np.asarray(ref[key])[both], rtol=1e-5
-        )
-    assert (
-        np.asarray(ref["face_nverts"])[both]
-        == np.asarray(out["face_nverts"])[both]
-    ).all()
-    np.testing.assert_allclose(
-        np.asarray(out["face_area"])[both],
-        np.asarray(ref["face_area"])[both],
-        atol=5e-5,
-    )
-
-
-def test_pallas_cells_degenerate_interior_not_miscertified():
-    """Regression: interior atoms of a perfect cubic lattice skip the
-    host mirror-flag, but uniform edge duplication keeps every closure
-    certificate at zero while scaling the volume — the in-kernel tangency
-    detector must force dedup (a flag-only skip certified 8 wrong cells)."""
-    from waterorderlib_tpu.ops.pallas.voronoi_cells import voronoi_cells_pallas
-
-    a, ng = 3.0, 6
-    g = np.arange(ng) * a + a / 2.0
-    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
-    _, rel_parked, nl, is_b = _kernel_inputs(pts, ng * a)
-    assert int((~np.asarray(is_b)).sum()) >= 8  # the skip path is exercised
-    out = voronoi_cells_pallas(rel_parked, nl.valid, is_b, 32, 1e-4, interpret=True)
-    cert = np.asarray(out["ok_shape"]) & np.asarray(
-        nl.dist[:, -1] >= 2.0 * out["r_cell"]
-    )
-    vol = np.asarray(out["vol"])
-    assert (cert & (np.abs(vol - a**3) > 1e-2 * a**3)).sum() == 0
-    # with the detector the degenerate cells dedup and certify correctly
-    assert cert.sum() == len(pts)
-
-
-def test_pallas_combined_topk_cells_interpret():
-    """The full TPU dispatch composition (Pallas top-K search feeding the
-    fused cell kernel) in interpret mode, vs the XLA window+clip path.
-    Certified flags and moments must agree (ties in the top-K search may
-    legally differ only on uncertified cells)."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from waterorderlib_tpu.surface import voronoi_device as vd
-
-    pts_np, box_l = _water_points(n=600, seed=5)
-    pts = jnp.asarray(pts_np, jnp.float32)
-    ext = vd.mirror_points_device(pts, box_l)
-    box = jnp.asarray([vd._NO_PBC_BOX] * 3, jnp.float32)
-    win = vd._suggest_win(len(pts_np), int(ext.shape[0]), float(box_l), 64)
-    ref = vd._cells_blocked(
-        pts, ext, box, 32, 64, 256, 1e-4, win=win,
-        topk_impl="window", cell_impl="clip",
-    )
-    with pltpu.force_tpu_interpret_mode():
-        out = vd._cells_blocked(
-            pts, ext, box, 32, 64, 256, 1e-4, win=win,
-            topk_impl="pallas", topk_seg=768, cell_impl="pallas",
-        )
-    for o in (ref, out):
-        o["certified"] = (
-            np.asarray(o["ok_shape"])
-            & np.asarray(o["win_covered"])
-            & np.asarray(o["nbr_dist"][:, -1] >= 2.0 * o["r_cell"])
-        )
-    cr, cp = ref["certified"], out["certified"]
-    both = cr & cp
-    assert both.sum() >= 0.7 * len(pts_np)
-    assert (cr ^ cp).mean() <= 0.02  # tie-order differences only
-    np.testing.assert_allclose(
-        np.asarray(out["vol"])[both], np.asarray(ref["vol"])[both], rtol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(out["area"])[both], np.asarray(ref["area"])[both], rtol=1e-5
-    )
-
-
-def test_pallas_cells_wide_tier_interpret():
-    """The fused kernel at the wide tier-1 config (k=40, k_search=96)
-    matches the XLA clip builder (interpret mode)."""
-    import jax
-
-    from waterorderlib_tpu.ops.pallas.voronoi_cells import (
-        fits_voronoi_cells,
-        voronoi_cells_pallas,
-    )
-    from waterorderlib_tpu.surface import voronoi_device as vd
-
-    assert fits_voronoi_cells(40, 96)
-    assert not fits_voronoi_cells(48, 96)  # PT alone exceeds VMEM
-    pts, box_l = _water_points(n=120, seed=2)
-    rel_all, rel_parked, nl, is_b = _kernel_inputs(pts, box_l, k=40, ks=96)
-    ref = jax.vmap(lambda r, o: vd._cell_moments_clip(r, o, 40, 1e-4))(
-        rel_all, nl.valid
-    )
-    out = voronoi_cells_pallas(
-        rel_parked, nl.valid, is_b, 40, 1e-4, interpret=True
-    )
-    ro = np.asarray(ref["ok_shape"])
-    po = np.asarray(out["ok_shape"])
-    assert (ro ^ po).sum() == 0
-    both = ro & po
-    assert both.sum() >= 0.5 * len(pts)
-    np.testing.assert_allclose(
-        np.asarray(out["vol"])[both], np.asarray(ref["vol"])[both], rtol=1e-5
-    )
 
 
 def test_clip_certified_error_band():
@@ -831,70 +569,6 @@ def test_cellgrid_overflow_vetoes_coverage():
     np.testing.assert_allclose(
         d1[c1], np.asarray(nl.dist)[c1], rtol=2e-6, atol=2e-6
     )
-
-
-def test_cellgrid_pallas_extract_interpret_matches_xla():
-    """The Pallas per-row extraction over the cell-grid gather
-    (cellgrid_extract_pallas) matches the XLA lax.top_k selection on every
-    covered row — kernel-logic check in interpret mode, any backend."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from waterorderlib_tpu.surface import voronoi_device as vd
-
-    n = 512
-    pts, box_l = _water_points(n=n, jitter=0.6, seed=11)
-    pts = pts.astype(np.float32)
-    n_side, cap = 5, 64
-    ext = vd.mirror_points_device(jnp.asarray(pts), box_l)
-    args = (jnp.asarray(pts), ext, jnp.float32(box_l), 48, 64, n_side, cap)
-    with pltpu.force_tpu_interpret_mode():
-        d_p, i_p, v_p, c_p = (
-            np.asarray(x)
-            for x in vd._cellgrid_topk(*args, select="pallas")
-        )
-    d_x, i_x, v_x, c_x = (
-        np.asarray(x) for x in vd._cellgrid_topk(*args, select="xla")
-    )
-    np.testing.assert_array_equal(c_p, c_x)
-    assert c_p.sum() > 0.5 * n
-    np.testing.assert_allclose(d_p[c_p], d_x[c_p], atol=2e-6)
-    # index sets agree except at tied K-th-boundary distances
-    for r in np.where(c_p)[0][:128]:
-        if set(i_p[r].tolist()) != set(i_x[r].tolist()):
-            np.testing.assert_allclose(
-                np.sort(d_p[r]), np.sort(d_x[r]), atol=2e-6
-            )
-
-
-def test_cellgrid_pallas_extract_on_tpu():
-    """On-chip parity of the Pallas cellgrid extraction vs the XLA
-    selection at production size."""
-    import jax
-
-    if jax.devices()[0].platform != "tpu":
-        pytest.skip("pallas kernel needs the TPU backend")
-    import jax.numpy as jnp
-
-    from waterorderlib_tpu.ops.pallas.voronoi_topk import pick_cg_seg
-    from waterorderlib_tpu.surface import voronoi_device as vd
-
-    n = 4096
-    pts, box_l = _water_points(n=n, jitter=0.6, seed=13)
-    pts = pts.astype(np.float32)
-    cg = vd._suggest_cellgrid(n, float(box_l), 64)
-    assert cg is not None and pick_cg_seg(64, 27 * cg[1]) is not None
-    ext = vd.mirror_points_device(jnp.asarray(pts), box_l)
-    args = (jnp.asarray(pts), ext, jnp.float32(box_l), 64, 128, cg[0], cg[1])
-    d_p, i_p, v_p, c_p = (
-        np.asarray(x) for x in vd._cellgrid_topk(*args, select="pallas")
-    )
-    d_x, i_x, v_x, c_x = (
-        np.asarray(x) for x in vd._cellgrid_topk(*args, select="xla")
-    )
-    np.testing.assert_array_equal(c_p, c_x)
-    assert c_p.mean() >= 0.95
-    np.testing.assert_allclose(d_p[c_p], d_x[c_p], atol=2e-5)
 
 
 def test_cellgrid_hybrid_parity_vs_host():

@@ -50,8 +50,8 @@ def test_hydrated_volume_calc():
 
 
 def test_voronoi_calc_device_batched_is_default_and_chunk_invariant(tmp_path):
-    """The device engine batches frames by default (VERDICT r4 weak item 1:
-    no-mesh trajectory calls must not take the slow per-frame ladder) and
+    """The device engine batches frames by default (no-mesh trajectory
+    calls must not take the slow per-frame ladder) and
     chunking must not change the statistics: chunk_frames=1 vs one big
     chunk produce identical results, both matching the host engine."""
     top, traj = make_water_box(N_WAT, n_frames=N_FRAMES, seed=45)
@@ -72,13 +72,19 @@ def test_voronoi_calc_device_batched_is_default_and_chunk_invariant(tmp_path):
 
 def test_pick_engine_auto_requires_tpu(monkeypatch):
     # "auto" only routes to the device tessellation when the backend is a
-    # real TPU — on CPU the clip builder loses to Qhull at every size
-    monkeypatch.setattr(voronoi_driver, "_on_tpu", lambda: False)
-    assert voronoi_driver._pick_engine("auto", 100_000) == "host"
-    monkeypatch.setattr(voronoi_driver, "_on_tpu", lambda: True)
-    assert voronoi_driver._pick_engine("auto", 100_000) == "device"
-    assert voronoi_driver._pick_engine("auto", 100) == "host"
+    # GPU — on CPU the clip builder loses to Qhull at every size — and only
+    # for enough points x frames to repay the device program's compile
+    from waterorderlib_tpu.ops import backend
+
+    pick = voronoi_driver._pick_engine
+    monkeypatch.setattr(backend, "is_gpu", lambda: False)
+    assert pick("auto", 100_000, 1000, "volumes") == "host"
+    monkeypatch.setattr(backend, "is_gpu", lambda: True)
+    assert pick("auto", 4101, 1000, "volumes") == "device"
+    assert pick("auto", 4101, 32, "volumes") == "host"  # a short run: Qhull
+    assert pick("auto", 4101, 32, "contacts") == "device"
+    assert pick("auto", 4101, 8, "contacts") == "host"
     # explicit engines are never overridden
-    monkeypatch.setattr(voronoi_driver, "_on_tpu", lambda: False)
-    assert voronoi_driver._pick_engine("device", 100) == "device"
-    assert voronoi_driver._pick_engine("host", 100_000) == "host"
+    monkeypatch.setattr(backend, "is_gpu", lambda: False)
+    assert pick("device", 100, 1, "volumes") == "device"
+    assert pick("host", 100_000, 1000, "contacts") == "host"

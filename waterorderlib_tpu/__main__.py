@@ -44,6 +44,9 @@ def main(argv=None):
     g.add_argument("--frames", type=int, default=10)
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--solute", default="", help="comma-separated solute elements, e.g. C,C,O")
+    g.add_argument("--diffusion", type=float, default=0.0,
+                   help="water self-diffusion in A^2/ps, frames 1 ps apart "
+                        "(0 = waters stay on their lattice sites; liquid water ~0.23)")
     g.add_argument("--out", default="system", help="basename for .json/.npz outputs")
 
     for name, extra in [
@@ -72,7 +75,7 @@ def main(argv=None):
         sol = [s for s in args.solute.split(",") if s]
         top, traj = make_water_box(
             args.waters, n_frames=args.frames, seed=args.seed,
-            solute_elements=sol or None,
+            solute_elements=sol or None, diffusion=args.diffusion,
         )
         top.to_json(args.out + ".json")
         traj.save(args.out + ".npz", topology=top)
@@ -80,6 +83,9 @@ def main(argv=None):
               f"({traj.n_frames} frames, {traj.n_atoms} atoms)")
         return 0
 
+    from waterorderlib_tpu.utils import compile_cache
+
+    compile_cache.enable()
     common = dict(stride=args.stride, output_dir=args.output_dir, wat_res=args.wat_res)
     chunk = {"chunk_frames": args.chunk_frames} if args.chunk_frames else {}
     if getattr(args, "mesh", ""):

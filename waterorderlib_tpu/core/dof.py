@@ -1,7 +1,7 @@
 """Curvilinear degrees of freedom for 1-3 water molecules (Lazaridis-Karplus
 convention) and the matching curvature-aware distance metrics.
 
-TPU-native replacements for `get1BodyDOFs`/`get2BodyDOFs`/`get3BodyDOFs`
+JAX replacements for `get1BodyDOFs`/`get2BodyDOFs`/`get3BodyDOFs`
 (/root/reference/structureLibs/water_properties.py:787-921) and
 `distanceMetric1B/2B/3B` (wp:924-977; duplicated in Fortran at
 waterlib.f90:1474-1543). All functions are elementwise over leading batch

@@ -1,6 +1,6 @@
 """Vectorized geometric primitives.
 
-TPU-native replacements for the scalar Fortran helpers in the reference
+JAX replacements for the scalar Fortran helpers in the reference
 (/root/reference/fortran/waterlib.f90): `Centroid` (:9-15), `crossProd3`
 (:18-29), `RgWeights` (:50-64), `CosAngle3` (:683-703), `AngBetween`
 (:954-965), `watOrient` (:973-1010), `watOHvec` (:1018-1044), `calcSD`

@@ -1,6 +1,6 @@
 """Periodic-boundary-condition primitives.
 
-TPU-native replacement for the inline minimum-image arithmetic used by every
+JAX replacement for the inline minimum-image arithmetic used by every
 Fortran kernel in the reference (`distvec - BoxL*anint(distvec*iBoxL)`,
 e.g. /root/reference/fortran/waterlib.f90:741, :848) and for `reimage`
 (waterlib.f90:32-47).

@@ -1,7 +1,7 @@
 """Density fields on grids: raw box-count, Willard-Chandler coarse-grained,
 spherical probe volumes, and interface-water bookkeeping.
 
-TPU-native replacements for the grid kernels in
+JAX replacements for the grid kernels in
 /root/reference/fortran/waterlib.f90: `DensityField` (:1220-1268),
 `WillardDensityField` (:1286-1341), `WillardDensityPoints` (:1351-1398),
 `probeGrid` (:1106-1134), `binOnGrid` (:1047-1099), and `InterfaceWater`

@@ -1,6 +1,6 @@
 """Hard-sphere insertion chemical potential driver.
 
-TPU-native replacement for `chemPotCalc`
+JAX replacement for `chemPotCalc`
 (/root/reference/structureLibs/orderParam_lib.py:1666-1791): random probe
 insertions per frame, count heavy atoms overlapping each probe within
 `probeRadius`, histogram the overlap counts N, and report

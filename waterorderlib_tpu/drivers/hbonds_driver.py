@@ -1,6 +1,6 @@
 """Hydrogen-bond trajectory drivers.
 
-TPU-native replacements for `hbCalc`
+JAX replacements for `hbCalc`
 (/root/reference/structureLibs/orderParam_lib.py:729-917), `getBoundWrap`
 (:419-572, trajectory-level wrapper with per-frame caching), and the cluster
 statistics drivers `getHBClusterStats` (:158-237), `getIonClusterStats`
@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from waterorderlib_tpu.hbonds.bonds import general_hbonds
+from waterorderlib_tpu.hbonds.bonds import general_hbonds, hbond_counts
 from waterorderlib_tpu.hbonds import clusters as clusters_mod
 from waterorderlib_tpu.hbonds.populations import bound_wrap_masks
 from waterorderlib_tpu.ops import histograms, pairs
@@ -76,69 +76,24 @@ def hb_calc(
     def fold_mol(v, per_mol):
         return v.reshape(n_sol, per_mol).sum(axis=1) if per_mol else jnp.zeros(n_sol)
 
-    # the wat-wat matrix (Nw x 2Nw) dominates; on TPU the fused Pallas
-    # counting kernel replaces it (consumers only need row/column sums)
-    use_pallas_watwat = jax.devices()[0].platform == "tpu" and nw >= 512
-    # at 16k+ waters the z-slab two-set kernel takes over; its window/pad
-    # need the host-side box edge, so `_set_slab_cfg` fills this dict right
-    # before the first traced `run` call (empty dict = dense kernel)
-    slab_cfg: dict = {}
-
-    def _set_slab_cfg(box_z: float):
-        if use_pallas_watwat and nw >= 16384 and not slab_cfg:
-            from waterorderlib_tpu.ops.pallas.hbond_slab import (
-                suggest_pad_two_set,
-                suggest_window_two_set,
-            )
-
-            slab_cfg["win"] = suggest_window_two_set(nw, 2 * nw, box_z, dist_cut)
-            slab_cfg["pad"] = suggest_pad_two_set(2 * nw, box_z, dist_cut + 2.0)
-
     def frame_counts(p, box):
-        """Per-frame H-bond totals: (wat_tot (Nw,), sol_tot (n_sol,))."""
+        """Per-frame H-bond totals: (wat_tot (Nw,), sol_tot (n_sol,)). Every
+        pair set goes through the blocked counter: the consumers need only
+        per-acceptor and per-donor sums, never the (Na, Nd) matrix."""
+
+        def hb(a, d, dh):
+            return hbond_counts(a, d, dh, box, dist_cut, ang_cut)
+
         wat_acc_pos = p[wat_acc]
         wat_don_pos = p[wat_don]
         wat_donh_pos = p[wat_donh]
-        if use_pallas_watwat:
-            from waterorderlib_tpu.ops.pallas.hbond_kernel import hbond_counts
-
-            if slab_cfg:
-                # large systems: z-slab-pruned two-set kernel; the dense
-                # kernel recomputes in-graph iff the coverage certificate
-                # fails (lax.cond runs only the taken branch)
-                from waterorderlib_tpu.ops.pallas.hbond_slab import hbond_counts_slab
-
-                a_s, d_s, cov = hbond_counts_slab(
-                    wat_acc_pos, wat_don_pos, wat_donh_pos, box,
-                    dist_cut, ang_cut,
-                    window=slab_cfg["win"], pad=slab_cfg["pad"],
-                )
-                acc_cnt, don_cnt = jax.lax.cond(
-                    cov,
-                    lambda _: (a_s, d_s),
-                    lambda _: hbond_counts(
-                        wat_acc_pos, wat_don_pos, wat_donh_pos, box, dist_cut, ang_cut
-                    ),
-                    None,
-                )
-            else:
-                acc_cnt, don_cnt = hbond_counts(
-                    wat_acc_pos, wat_don_pos, wat_donh_pos, box, dist_cut, ang_cut
-                )
-            wat_tot = acc_cnt + don_cnt.reshape(nw, 2).sum(axis=1)
-        else:
-            watwat = general_hbonds(wat_acc_pos, wat_don_pos, wat_donh_pos, box, dist_cut, ang_cut)
-            wat_tot = jnp.sum(watwat, axis=1) + jnp.sum(watwat, axis=0).reshape(nw, 2).sum(axis=1)
+        acc_cnt, don_cnt = hb(wat_acc_pos, wat_don_pos, wat_donh_pos)
+        wat_tot = acc_cnt + don_cnt.reshape(nw, 2).sum(axis=1)
 
         if has_sol:
             sO_acc, sO_don, sO_donh = p[sol_acc_o], p[sol_don_o], p[sol_donh_o]
             sN_acc, sN_don, sN_donh = p[sol_acc_n], p[sol_don_n], p[sol_donh_n]
-
-            def hb(a, d, dh):
-                if d.shape[0] == 0 or a.shape[0] == 0:
-                    return jnp.zeros((a.shape[0], d.shape[0]), bool)
-                return general_hbonds(a, d, dh, box, dist_cut, ang_cut)
-
+            # each entry: (per-acceptor counts, per-donor counts)
             watsolO = hb(wat_acc_pos, sO_don, sO_donh)
             solwatO = hb(sO_acc, wat_don_pos, wat_donh_pos)
             watsolN = hb(wat_acc_pos, sN_don, sN_donh)
@@ -148,10 +103,10 @@ def hb_calc(
             solNsolO = hb(sN_acc, sO_don, sO_donh)
             solNsolN = hb(sN_acc, sN_don, sN_donh)
 
-            solO_acc_cnt = jnp.sum(solwatO, 1) + jnp.sum(solOsolO, 1) + jnp.sum(solOsolN, 1)
-            solO_don_cnt = jnp.sum(watsolO, 0) + jnp.sum(solOsolO, 0) + jnp.sum(solNsolO, 0)
-            solN_acc_cnt = jnp.sum(solwatN, 1) + jnp.sum(solNsolN, 1) + jnp.sum(solNsolO, 1)
-            solN_don_cnt = jnp.sum(watsolN, 0) + jnp.sum(solNsolN, 0) + jnp.sum(solOsolN, 0)
+            solO_acc_cnt = solwatO[0] + solOsolO[0] + solOsolN[0]
+            solO_don_cnt = watsolO[1] + solOsolO[1] + solNsolO[1]
+            solN_acc_cnt = solwatN[0] + solNsolN[0] + solNsolO[0]
+            solN_don_cnt = watsolN[1] + solNsolN[1] + solOsolN[1]
 
             sol_tot = (
                 fold_mol(solO_acc_cnt, len(sol_acc_o) // n_sol)
@@ -161,10 +116,10 @@ def hb_calc(
             )
             wat_tot = (
                 wat_tot
-                + jnp.sum(watsolO, axis=1)
-                + jnp.sum(solwatO, axis=0).reshape(nw, 2).sum(axis=1)
-                + jnp.sum(watsolN, axis=1)
-                + jnp.sum(solwatN, axis=0).reshape(nw, 2).sum(axis=1)
+                + watsolO[0]
+                + solwatO[1].reshape(nw, 2).sum(axis=1)
+                + watsolN[0]
+                + solwatN[1].reshape(nw, 2).sum(axis=1)
             )
         else:
             sol_tot = jnp.zeros(max(n_sol, 1), jnp.int32)
@@ -247,7 +202,6 @@ def hb_calc(
         h_sol = np.zeros(n_bins, np.float32)
         wm_parts, sm_parts = [], []
         for pos_c, boxes_c in iter_chunks(traj_file, chunk_frames, stride, n_atoms=top.n_atoms):
-            _set_slab_cfg(float(boxes_c[0, 2]))
             (hw, hs), (wm, sm) = run(jnp.asarray(pos_c), jnp.asarray(boxes_c))
             h_wat += np.asarray(hw)
             h_sol += np.asarray(hs)
@@ -256,7 +210,6 @@ def hb_calc(
         wat_means = np.concatenate(wm_parts)
         sol_means = np.concatenate(sm_parts)
     else:
-        _set_slab_cfg(float(traj.boxes[0, 2]))
         (h_wat, h_sol), (wat_means, sol_means) = run(
             jnp.asarray(traj.positions), jnp.asarray(traj.boxes)
         )

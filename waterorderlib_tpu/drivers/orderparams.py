@@ -1,6 +1,6 @@
 """Trajectory-level order-parameter drivers.
 
-TPU-native replacements for the reference workflow drivers
+JAX replacements for the reference workflow drivers
 `tetOrderCalc` (/root/reference/structureLibs/orderParam_lib.py:1426-1503),
 `threeBodyCalc` (:1269-1424), `lsiCalc` (:1586-1663) and `hexOrderCalc`
 (:1505-1584).
@@ -32,7 +32,7 @@ import numpy as np
 
 from waterorderlib_tpu.io.trajectory import load_system, Trajectory
 from waterorderlib_tpu.io.topology import Topology
-from waterorderlib_tpu.ops import histograms, pairs
+from waterorderlib_tpu.ops import backend, histograms, pairs
 from waterorderlib_tpu.order import angles as angles_mod
 from waterorderlib_tpu.order import lsi as lsi_mod
 from waterorderlib_tpu.order import psi6 as psi6_mod
@@ -46,36 +46,16 @@ from waterorderlib_tpu.utils.logging import get_logger
 # shared machinery
 # ---------------------------------------------------------------------------
 
-# Expected failure modes of a certified Pallas-kernel dispatch: a broken /
-# missing kernel module, or a Mosaic compile / VMEM-exhaustion error at
-# runtime (jax.errors.JaxRuntimeError == XlaRuntimeError). ValueError is
-# included because Mosaic LOWERING failures raise it (measured on-chip,
-# round 4), as do kernel-config guards (slab pad/window checks); every
-# fallback is still logged per tier. Anything else is a bug and must
-# propagate (VERDICT r2 item 5: no silent degradation).
-KERNEL_FALLBACK_ERRORS = (ImportError, ValueError, jax.errors.JaxRuntimeError)
-
 # shared once-per-key seen-set (utils.logging); aliased so tests can
 # clear/inspect which (driver, tier) pairs served calls this process
 _logged_tiers: set = _logging_mod._LOGGED_ONCE
 
 
-def _log_tier(driver: str, tier: str, err: BaseException | None = None) -> None:
-    """Record (once per driver+tier) which kernel tier served a driver call;
-    a fallback caused by a kernel error is logged as a warning with the
-    error, so a Pallas regression is visible instead of a silent 5-50x
-    slowdown."""
-    if err is not None:
-        _logging_mod.log_once(
-            (driver, tier),
-            "%s: kernel dispatch failed (%r); serving tier=%s",
-            driver, err, tier,
-            level="warning",
-        )
-    else:
-        _logging_mod.log_once(
-            (driver, tier), "%s: serving tier=%s", driver, tier
-        )
+def _log_tier(driver: str, tier: str) -> None:
+    """Record (once per driver+tier) which implementation served a driver
+    call, so a change of path is visible in the logs."""
+    _logging_mod.log_once((driver, tier), "%s: serving tier=%s", driver, tier)
+
 
 def _resolve_system(top_file, traj_file, stride):
     """Accept either file paths or in-memory (Topology, Trajectory)."""
@@ -164,7 +144,6 @@ def _tet_core(wat_pos, boxes, masks, low_cut, high_cut, row_block, n_bins, lo, h
               mesh=None):
     """q + population statistics for one frame batch: returns
     (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
-    nw = wat_pos.shape[1]
     if mesh is not None:
         # device-mesh scale-out (SURVEY §2c): frames data-parallel, atoms
         # tensor-parallel; arbitrary F/N via the NaN-padding wrapper
@@ -174,36 +153,17 @@ def _tet_core(wat_pos, boxes, masks, low_cut, high_cut, row_block, n_bins, lo, h
             wat_pos, boxes, mesh, low_cut, high_cut, n_bins=n_bins
         )
         return _q_pop_stats(q_all, masks, n_bins, lo, hi)
-    # On TPU the fused Pallas kernel computes q for all waters per frame;
-    # populations are masked reductions over the same values (identical by
-    # construction — q per center is subset-independent).
-    use_pallas = (
-        jax.devices()[0].platform == "tpu"
-        and nw >= max(2 * row_block, 256)  # slab kernels tile rows at 128
-    )
-    if use_pallas:
-        try:
-            from waterorderlib_tpu.ops.pallas import qtet2
-
-            # certificate check happens on host, so q is computed outside the
-            # stats jit (one kernel launch for the whole trajectory either way)
-            q_all = qtet2.order_param_q_certified(wat_pos, boxes, low_cut, high_cut)
-            _log_tier("tet_order_calc", qtet2.last_tier)
-            return _q_pop_stats(q_all, masks, n_bins, lo, hi)
-        except KERNEL_FALLBACK_ERRORS as e:
-            _log_tier("tet_order_calc", "xla-fallback", err=e)
-
-    def step(hist, frame):
-        pos, box, mask = frame
-        q = qtet.order_param_q(pos, pos, box, low_cut, high_cut, row_block)  # (Nw,)
-        mean, var = histograms.masked_mean_var(q[None, :], mask)  # (P+1,)
-        h = jax.vmap(lambda m: histograms.masked_histogram(q, m, n_bins, lo, hi))(mask)
-        return hist + h, (mean, var)
-
-    n_pops1 = masks.shape[1]
-    return _scan_frames(
-        step, jnp.zeros((n_pops1, n_bins), jnp.float32), wat_pos, boxes, masks
-    )
+    # q for all waters of every frame, then populations as masked
+    # reductions over the same values (identical by construction — q per
+    # center is subset-independent). On a GPU the windowed neighbour kernel
+    # serves q; elsewhere the blocked all-pairs XLA path does.
+    if backend.is_gpu():
+        q_all, tier = qtet.order_param_q_certified(wat_pos, boxes, low_cut, high_cut)
+    else:
+        q_all = qtet.order_param_q_traj(wat_pos, boxes, low_cut, high_cut, row_block)
+        tier = "xla"
+    _log_tier("tet_order_calc", tier)
+    return _q_pop_stats(q_all, masks, n_bins, lo, hi)
 
 
 def tet_order_calc(
@@ -289,7 +249,6 @@ def _three_body_core(
     """3-body angles + metrics for one frame batch: returns
     ((hist (P+1, n_bins), hist2d (n2x*n_bins,)),
      (frac, avg, var, ent, n_wats) each (F, P+1))."""
-    nw = wat_pos.shape[1]
     if mesh is not None:
         # device-mesh scale-out (SURVEY §2c): frames data-parallel, center
         # rows atom-parallel, per-frame stats psum-reduced over atoms
@@ -305,90 +264,6 @@ def _three_body_core(
         sub = angles_mod.AngleSet(aset.ang, valid, aset.count)
         m = angles_mod.tetrahedral_metrics(sub, n_bins=n_bins, lo=lo, hi=hi)
         return m.hist, m.frac_tet, m.avg_cos, m.var_cos, m.entropy
-
-    # TPU: the fused 3-body kernel computes every pair angle for the whole
-    # trajectory in one launch; fall through to the XLA scan when the window
-    # certificate fails or the system is too small to amortize the kernel.
-    use_pallas = (
-        jax.devices()[0].platform == "tpu"
-        and nw >= max(2 * row_block, 256)  # slab row tile is 128
-        and max_neighbors == 16
-        and high_cut <= 4.5
-    )
-    if use_pallas:
-        try:
-            from waterorderlib_tpu.ops.pallas import angles_kernel
-            from waterorderlib_tpu.ops.pallas.slab import fits_scoped_vmem, suggest_pad
-            from waterorderlib_tpu.ops.pallas.qtet2 import suggest_window
-
-            bz = float(boxes[0, 2])
-            window = suggest_window(nw, bz, margin=4.5, row_tile=128)
-            pad = suggest_pad(nw, bz, 4.5 + 2.0)
-            if fits_scoped_vmem(128, window, angles_kernel.K):
-                tier = "slab"
-                ang, cnt, covered = angles_kernel.neighbor_pair_angles_traj(
-                    wat_pos, boxes, low_cut, high_cut, window=window, pad=pad,
-                )
-            else:
-                # 100k+ atoms: window-chunked carry variant; past ~400k the
-                # chunked kernel's VMEM-resident coordinates overflow too, so
-                # stream them from HBM (both bit-identical to the monolithic)
-                if nw > 400_000:
-                    from waterorderlib_tpu.ops.pallas.angles_hbm import (
-                        neighbor_pair_angles_traj_hbm as chunked_fn,
-                    )
-
-                    tier = "hbm"
-                else:
-                    from waterorderlib_tpu.ops.pallas.angles_chunked import (
-                        neighbor_pair_angles_traj_chunked as chunked_fn,
-                    )
-
-                    tier = "chunked"
-
-                ang, cnt, covered = chunked_fn(
-                    wat_pos, boxes, low_cut, high_cut, window=window, pad=pad,
-                )
-        except KERNEL_FALLBACK_ERRORS as e:
-            covered = None
-            _log_tier("three_body_calc", "xla-fallback", err=e)
-        if covered is not None and not bool(np.asarray(covered).all()):
-            _log_tier(
-                "three_body_calc", "xla-fallback",
-                err=RuntimeError("window coverage certificate failed"),
-            )
-        if covered is not None and bool(np.asarray(covered).all()):
-            _log_tier("three_body_calc", tier)
-
-            @jax.jit
-            def run_stats(ang, cnt, masks):
-                valid = angles_kernel.pair_validity(cnt)  # (F, N, 128)
-
-                def one_frame(ang_f, valid_f, cnt_f, mask_f):
-                    def one_pop(m):
-                        v = valid_f & m[:, None]
-                        met = angles_mod.tetrahedral_metrics_flat(
-                            ang_f, v, n_bins=n_bins, lo=lo, hi=hi
-                        )
-                        return met.hist, met.frac_tet, met.avg_cos, met.var_cos, met.entropy
-
-                    h, frac, avg, var, ent = jax.vmap(one_pop)(mask_f)
-                    cc = jnp.clip(cnt_f - 1, 0, n2x - 1)
-                    cc2 = jnp.broadcast_to(cc[:, None], ang_f.shape)
-                    flat_bin = cc2.astype(jnp.int32) * n_bins + jnp.clip(
-                        jnp.floor(ang_f / (hi / n_bins)).astype(jnp.int32), 0, n_bins - 1
-                    )
-                    okf = valid_f.reshape(-1)
-                    h2 = jnp.zeros(n2x * n_bins, jnp.float32).at[
-                        jnp.where(okf, flat_bin.reshape(-1), 0)
-                    ].add(okf.astype(jnp.float32))
-                    return h, h2, frac, avg, var, ent
-
-                h, h2, frac, avg, var, ent = jax.vmap(one_frame)(ang, valid, cnt, masks)
-                n_wats = jnp.sum(masks, axis=-1).astype(jnp.float32)
-                return (jnp.sum(h, axis=0), jnp.sum(h2, axis=0)), (frac, avg, var, ent, n_wats)
-
-            return run_stats(ang, cnt, masks)
 
     def step(carry, frame):
         hist, hist2d = carry
@@ -660,7 +535,6 @@ def _lsi_core(wat_pos, boxes, masks, low_cut, high_cut, max_neighbors, row_block
               n_bins, lo, hi, mesh=None):
     """LSI + population statistics for one frame batch: returns
     (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
-    nw = wat_pos.shape[1]
     if mesh is not None:
         from waterorderlib_tpu.parallel import mesh as pmesh
 
@@ -668,90 +542,6 @@ def _lsi_core(wat_pos, boxes, masks, low_cut, high_cut, max_neighbors, row_block
             wat_pos, boxes, masks, mesh, low_cut, high_cut, k=max_neighbors,
             n_bins=n_bins, lo=lo, hi=hi, row_block=row_block,
         )
-    # TPU: fused LSI kernel over the whole trajectory (certified). Gated on
-    # max_neighbors == 24 (the kernel's fixed K) so identical arguments give
-    # identical results on every platform — the raw-distance next-shell
-    # argmin can differ between candidate-list sizes on edge cases
-    use_pallas = (
-        jax.devices()[0].platform == "tpu"
-        and nw >= max(2 * row_block, 256)  # slab row tile is 128
-        and max_neighbors == 24
-    )
-    if use_pallas:
-        try:
-            from waterorderlib_tpu.ops.pallas import lsi_kernel
-            from waterorderlib_tpu.ops.pallas.slab import fits_scoped_vmem, suggest_pad
-            from waterorderlib_tpu.ops.pallas.qtet2 import suggest_window
-
-            bz = float(boxes[0, 2])
-            mg = high_cut + 3.7
-            window = suggest_window(nw, bz, margin=mg, row_tile=128)
-            pad = suggest_pad(nw, bz, mg + 2.0)
-            if fits_scoped_vmem(128, window, 24):
-                tier = "slab"
-                lsi_v, lsi_ok, _, covered = lsi_kernel.lsi_traj(
-                    wat_pos, boxes, low_cut, high_cut, window=window, pad=pad,
-                )
-            else:
-                # 100k+ atoms: split-shell kernel first (narrow in-shell
-                # K=12 extraction + wide single next-shell min — ~3x fewer
-                # lane-rounds than the K=24 chunked carry; its count
-                # certificate folds into `covered`, so a failed certificate
-                # falls through to the chunked tier below exactly like a
-                # window-coverage miss); then the window-chunked carry
-                # variant; past ~400k the chunked kernel's VMEM-resident
-                # coordinates overflow too, so stream them from HBM (chunked
-                # and HBM are bit-identical to the monolithic)
-                covered = None
-                if nw <= 400_000:
-                    from waterorderlib_tpu.ops.pallas.lsi_slab2 import (
-                        K_IN,
-                        fits_lsi_split,
-                        lsi_traj_split,
-                    )
-
-                    w_narrow = suggest_window(
-                        nw, bz, margin=high_cut, row_tile=128
-                    )
-                    n_ext = nw + 2 * pad
-                    if fits_lsi_split(
-                        128, 1536, K_IN, n_ext, -(-nw // 128)
-                    ):
-                        tier = "slab-split"
-                        lsi_v, lsi_ok, _, covered = lsi_traj_split(
-                            wat_pos, boxes, low_cut, high_cut,
-                            window_narrow=w_narrow, window_wide=window,
-                            pad=pad,
-                        )
-                if covered is None or not bool(np.asarray(covered).all()):
-                    if nw > 400_000:
-                        from waterorderlib_tpu.ops.pallas.lsi_hbm import (
-                            lsi_traj_hbm as lsi_fn,
-                        )
-
-                        tier = "hbm"
-                    else:
-                        from waterorderlib_tpu.ops.pallas.lsi_chunked import (
-                            lsi_traj_chunked as lsi_fn,
-                        )
-
-                        tier = "chunked"
-                    lsi_v, lsi_ok, _, covered = lsi_fn(
-                        wat_pos, boxes, low_cut, high_cut, window=window,
-                        pad=pad,
-                    )
-        except KERNEL_FALLBACK_ERRORS as e:
-            covered = None
-            _log_tier("lsi_calc", "xla-fallback", err=e)
-        if covered is not None and bool(np.asarray(covered).all()):
-            _log_tier("lsi_calc", tier)
-            return _masked_value_pop_stats(lsi_v, lsi_ok, masks, n_bins, lo, hi)
-        if covered is not None:
-            _log_tier(
-                "lsi_calc", "xla-fallback",
-                err=RuntimeError("window coverage certificate failed"),
-            )
-
     def step(hist, frame):
         pos, box, mask = frame
         res = lsi_mod.lsi(pos, pos, box, low_cut, high_cut, k=max_neighbors, row_block=row_block)
@@ -765,21 +555,6 @@ def _lsi_core(wat_pos, boxes, masks, low_cut, high_cut, max_neighbors, row_block
     )
 
 
-@partial(jax.jit, static_argnames=("n_bins",))
-def _masked_value_pop_stats(values, valid, masks, n_bins, lo, hi):
-    """(hist, (means, vars)) of per-atom values under per-population masks
-    intersected with a per-atom validity mask."""
-
-    def one_frame(v, ok, mask):
-        pop_valid = mask & ok[None, :]
-        mean, var = histograms.masked_mean_var(v[None, :], pop_valid)
-        h = jax.vmap(lambda m: histograms.masked_histogram(v, m, n_bins, lo, hi))(pop_valid)
-        return h, mean, var
-
-    h, mean, var = jax.vmap(one_frame)(values, valid, masks)
-    return jnp.sum(h, axis=0), (mean, var)
-
-
 def lsi_calc(
     top_file,
     traj_file,
@@ -789,7 +564,7 @@ def lsi_calc(
     stride: int = 1,
     low_cut: float = 0.0,
     high_cut: float = 3.7,
-    max_neighbors: int = 24,  # the fused TPU kernel K; >= any realistic shell occupancy
+    max_neighbors: int = 24,  # >= any realistic shell occupancy
     output_dir: str = ".",
     row_block: int = pairs.DEFAULT_ROW_BLOCK,
     seed: int | None = 0,
@@ -801,8 +576,7 @@ def lsi_calc(
     With `chunk_frames` the trajectory streams in chunks (io/streaming.py);
     with `mesh` each batch shards over the ('frames', 'atoms') device mesh.
 
-    NOTE: `max_neighbors` defaults to 24 (the fused TPU kernel's fixed K)
-    since round 2 — earlier releases used 16. On the non-kernel path this
+    NOTE: `max_neighbors` defaults to 24 — earlier releases used 16. This
     can shift the next-shell argmin on rare edge cases where the 17th-24th
     candidates matter; pass max_neighbors=16 for bit-compatibility with old
     results."""
@@ -856,7 +630,6 @@ def _psi_core(end_pos, boxes, masks, low_cut, high_cut, max_neighbors, row_block
               n_bins, lo, hi, mesh=None):
     """psi-6 + population statistics for one frame batch: returns
     (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
-    ne = end_pos.shape[1]
     if mesh is not None:
         from waterorderlib_tpu.parallel import mesh as pmesh
 
@@ -864,57 +637,6 @@ def _psi_core(end_pos, boxes, masks, low_cut, high_cut, max_neighbors, row_block
             end_pos, boxes, masks, mesh, low_cut, high_cut, k=max_neighbors,
             n_bins=n_bins, lo=lo, hi=hi, row_block=row_block,
         )
-    # TPU: fused psi6 kernel (Chebyshev cos/sin(6 theta), certified windows)
-    use_pallas = (
-        jax.devices()[0].platform == "tpu" and ne >= max(2 * row_block, 256) and max_neighbors == 24
-    )
-    if use_pallas:
-        try:
-            from waterorderlib_tpu.ops.pallas import psi6_kernel
-            from waterorderlib_tpu.ops.pallas.slab import fits_scoped_vmem, suggest_pad
-            from waterorderlib_tpu.ops.pallas.qtet2 import suggest_window
-
-            bz = float(boxes[0, 2])
-            window = suggest_window(ne, bz, margin=high_cut, row_tile=128)
-            pad = suggest_pad(ne, bz, high_cut + 2.0)
-            if fits_scoped_vmem(128, window, 24):
-                tier = "slab"
-                psi_v, _, covered = psi6_kernel.psi6_traj(
-                    end_pos, boxes, low_cut, high_cut, window=window, pad=pad,
-                )
-            else:
-                # 100k+ atoms: window-chunked carry variant; past ~400k the
-                # chunked kernel's VMEM-resident coordinates overflow too, so
-                # stream them from HBM (both bit-identical to the monolithic)
-                if ne > 400_000:
-                    from waterorderlib_tpu.ops.pallas.psi6_hbm import (
-                        psi6_traj_hbm as psi_fn,
-                    )
-
-                    tier = "hbm"
-                else:
-                    from waterorderlib_tpu.ops.pallas.psi6_chunked import (
-                        psi6_traj_chunked as psi_fn,
-                    )
-
-                    tier = "chunked"
-                psi_v, _, covered = psi_fn(
-                    end_pos, boxes, low_cut, high_cut, window=window, pad=pad,
-                )
-        except KERNEL_FALLBACK_ERRORS as e:
-            covered = None
-            _log_tier("hex_order_calc", "xla-fallback", err=e)
-        if covered is not None and bool(np.asarray(covered).all()):
-            _log_tier("hex_order_calc", tier)
-            return _masked_value_pop_stats(
-                psi_v, jnp.ones(psi_v.shape, bool), masks, n_bins, lo, hi
-            )
-        if covered is not None:
-            _log_tier(
-                "hex_order_calc", "xla-fallback",
-                err=RuntimeError("window coverage certificate failed"),
-            )
-
     def step(hist, frame):
         pos, box, mask = frame
         psi = psi6_mod.order_param_psi(

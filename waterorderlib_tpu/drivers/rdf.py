@@ -1,6 +1,6 @@
 """Radial distribution function driver.
 
-TPU-native replacement for `rdfCalc`
+JAX replacement for `rdfCalc`
 (/root/reference/structureLibs/orderParam_lib.py:575-727): Ow-Ow, Sol-Ow and
 Sol-Sol g(r) accumulated over the trajectory in 5 chunks, coordination
 numbers n(r) by Simpson integration (8*pi for same-species counted-once

@@ -20,33 +20,28 @@ import numpy as np
 
 from waterorderlib_tpu.drivers.orderparams import _resolve_system, _save_hist
 from waterorderlib_tpu.drivers.hbonds_driver import get_bound_wrap
+from waterorderlib_tpu.ops import backend
 from waterorderlib_tpu.stats import blocks
 from waterorderlib_tpu.surface.voronoi import voronoi_contacts, voronoi_volumes
 from waterorderlib_tpu.utils import logging as _logging_mod
 
-# point count above which "auto" switches from the host Qhull tessellation
-# to the certified device cells (surface/voronoi_device.py); below it the
-# host path is both exact in f64 and faster than a TPU round-trip. The
-# reasoning only holds on a TPU backend — on CPU the clip builder's big
-# XLA intermediates lose to Qhull at every size, so "auto" stays on host
-# there (explicit engine="device" still forces it, e.g. for tests).
-_DEVICE_MIN_POINTS = 2048
+# Work (points x frames) from which "auto" takes the certified device cells
+# (surface/voronoi_device.py) over host Qhull on a GPU: the point where a
+# cold start's compile is repaid. On an H100 (PERF.md) the per-water
+# volume program compiled in 108-422 s and then ran at ~7 ms/frame, against
+# ~0.25 ms per point per frame for Qhull; the solute-rows program of
+# contact_area_calc / hydrated_volume_calc compiled in ~15 s and ran at
+# 0.24 s/frame against 1.2 s/frame at 4,101 points. On the CPU backend the
+# clip builder's large XLA intermediates lose to Qhull at every size, so
+# "auto" stays on the host there (engine="device" still forces it).
+_DEVICE_MIN_WORK = {"volumes": 1_000_000, "contacts": 64_000}
 
 
-def _on_tpu() -> bool:
-    import jax
-
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # no backend at all
-        return False
-
-
-def _pick_engine(engine: str, n_points: int) -> str:
+def _pick_engine(engine: str, n_points: int, n_frames: int, kind: str) -> str:
     if engine == "auto":
         return (
             "device"
-            if n_points >= _DEVICE_MIN_POINTS and _on_tpu()
+            if backend.is_gpu() and n_points * n_frames >= _DEVICE_MIN_WORK[kind]
             else "host"
         )
     if engine not in ("host", "device"):
@@ -90,15 +85,14 @@ def voronoi_calc(
     {Vol,Area,Eta}Distribution_j.txt.
 
     engine: "host" = Qhull tessellation (f64-exact); "device" = certified
-    TPU cells (surface/voronoi_device.py) with per-atom host fallback;
-    "auto" = device at >= 2048 points.
+    device cells (surface/voronoi_device.py) with per-atom host fallback;
+    "auto" = see `_pick_engine`.
 
     The device engine batches frames by default: tier-1 cells for
     `chunk_frames` frames (default: min(F, 16)) run in ONE jitted dispatch
     and the escalation ladder runs once per tier per chunk — the per-frame
     path re-traces every tier's jit and pays the dispatch round-trip per
-    tier per frame (measured 4.3-41 s/frame at 12k vs ~0.5 s batched,
-    PERF.md round 4); it is kept only for single-frame calls.
+    tier per frame; it is kept only for single-frame calls.
 
     mesh: optional jax.sharding.Mesh (device engine only) — the batched
     tier-1 call is shard_mapped with frames data-parallel over the mesh;
@@ -110,7 +104,7 @@ def voronoi_calc(
     F = traj.n_frames
     nw = len(wat_inds)
     row_of_wat = {int(w): i for i, w in enumerate(wat_inds)}
-    eng = _pick_engine(engine, len(heavy))
+    eng = _pick_engine(engine, len(heavy), F, "volumes")
     _log_engine_once("voronoi_calc", eng)
     vol_b = area_b = None
     if eng == "device":
@@ -256,7 +250,7 @@ def contact_area_calc(
     undo the double-sided hull.area convention (ref getTotArea :1899-1910);
     intra-solute-residue contacts are excluded from the target sums.
 
-    engine: "host" (Qhull) | "device" (certified TPU cells) | "auto".
+    engine: "host" (Qhull) | "device" (certified device cells) | "auto".
 
     mesh: optional jax.sharding.Mesh (device engine only) — the solute
     rows' tier-1 cells for the whole frame batch run in one shard_mapped
@@ -302,7 +296,7 @@ def contact_area_calc(
             tot_target += row[mask].sum() / 2.0
         return (tot_target, tot) if with_total else tot_target
 
-    eng = _pick_engine(engine, len(heavy))
+    eng = _pick_engine(engine, len(heavy), traj.n_frames, "contacts")
     _log_engine_once("contact_area_calc", eng)
     batched = _contacts_frames_iter(
         eng, traj, heavy, sol_rows, mesh, chunk_frames
@@ -381,7 +375,7 @@ def hydrated_volume_calc(
     F = traj.n_frames
     vols = np.zeros(F)
     areas = np.zeros(F)
-    eng = _pick_engine(engine, len(heavy))
+    eng = _pick_engine(engine, len(heavy), F, "contacts")
     _log_engine_once("hydrated_volume_calc", eng)
     batched = _contacts_frames_iter(
         eng, traj, heavy, sol_rows, mesh, chunk_frames

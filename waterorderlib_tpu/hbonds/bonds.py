@@ -1,6 +1,6 @@
 """Hydrogen-bond detection kernel.
 
-TPU-native replacement for the canonical `generalHbonds`
+JAX replacement for the canonical `generalHbonds`
 (/root/reference/fortran/waterlib.f90:1136-1210) and its Python wrapper
 `HBondsGeneral` (/root/reference/structureLibs/water_properties.py:681-719).
 
@@ -45,6 +45,43 @@ def general_hbonds(
     cos_ang = jnp.sum(acc_vec * don_vec[None, :, :], axis=-1)
     ang = jnp.degrees(jnp.arccos(jnp.clip(cos_ang, -1.0, 1.0)))
     return within & (ang >= ang_cut)
+
+
+@partial(jax.jit, static_argnames=("block",))
+def hbond_counts(
+    acceptor_pos: jnp.ndarray,
+    donor_pos: jnp.ndarray,
+    donor_h_pos: jnp.ndarray,
+    box: jnp.ndarray,
+    dist_cut: float = 3.5,
+    ang_cut: float = 120.0,
+    block: int = 256,
+):
+    """Row and column sums of `general_hbonds` without the (Nacc, Ndon)
+    matrix: (per-acceptor counts (Nacc,), per-donor counts (Ndon,)), int32.
+
+    A scan over `block`-row acceptor blocks keeps only one (block, Ndon)
+    tile alive and accumulates the donor counts in its carry, so memory is
+    O(block * Ndon) at any system size."""
+    na, nd = acceptor_pos.shape[0], donor_pos.shape[0]
+    if na == 0 or nd == 0:
+        return jnp.zeros(na, jnp.int32), jnp.zeros(nd, jnp.int32)
+    block = min(block, na)
+    n_blocks = -(-na // block)
+    rows = jnp.pad(acceptor_pos, ((0, n_blocks * block - na), (0, 0)))
+    real = jnp.arange(n_blocks * block) < na
+
+    def one(don_cnt, blk):
+        acc, ok = blk
+        m = general_hbonds(acc, donor_pos, donor_h_pos, box, dist_cut, ang_cut)
+        m = m & ok[:, None]
+        return don_cnt + jnp.sum(m, axis=0, dtype=jnp.int32), jnp.sum(m, axis=1, dtype=jnp.int32)
+
+    don_cnt, acc_cnt = jax.lax.scan(
+        one, jnp.zeros(nd, jnp.int32),
+        (rows.reshape(n_blocks, block, 3), real.reshape(n_blocks, block)),
+    )
+    return acc_cnt.reshape(-1)[:na], don_cnt
 
 
 @partial(jax.jit, static_argnames=())

@@ -1,6 +1,6 @@
 """Hydration-shell population decomposition (bound / wrap / shell / non-shell).
 
-TPU-native replacement for `getBoundWrap`
+JAX replacement for `getBoundWrap`
 (/root/reference/structureLibs/orderParam_lib.py:419-572):
 
 - **shell**  = waters whose oxygen lies within (0, cutoff] of any solute

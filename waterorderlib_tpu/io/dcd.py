@@ -3,13 +3,13 @@
 Replaces the reference's pytraj trajectory loading
 (/root/reference/structureLibs/TrajObject.py:33) for the ubiquitous DCD
 format. Pure numpy (np.fromfile over Fortran-style records); a C++ reader
-(native/dcdlib) accelerates bulk decoding when built, loaded via ctypes.
+(native/dcdlib) accelerates bulk decoding, compiled at first use and
+loaded via ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 import struct
 
 import numpy as np
@@ -22,11 +22,10 @@ _NATIVE = None
 def _native():
     global _NATIVE
     if _NATIVE is None:
-        so = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-            "native", "libdcd.so",
-        )
-        if os.path.exists(so):
+        from waterorderlib_tpu.utils import native
+
+        so = native.build("libdcd.so")
+        if so is not None:
             lib = ctypes.CDLL(so)
             lib.dcd_read.restype = ctypes.c_int
             lib.dcd_read.argtypes = [

@@ -19,7 +19,6 @@ pipeline (io/streaming.py).
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 
@@ -35,11 +34,10 @@ def _native():
     it can't prove exact makes it return <0 and we fall back."""
     global _NATIVE
     if _NATIVE is None:
-        so = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-            "native", "libmdcrd.so",
-        )
-        if os.path.exists(so):
+        from waterorderlib_tpu.utils import native
+
+        so = native.build("libmdcrd.so")
+        if so is not None:
             lib = ctypes.CDLL(so)
             lib.f8_decode.restype = ctypes.c_long
             lib.f8_decode.argtypes = [

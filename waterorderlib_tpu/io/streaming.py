@@ -2,9 +2,9 @@
 host->device double buffering.
 
 The reference iterates frames lazily through pytraj's `iterload`
-(orderParam_lib.py:617 and every other driver loop); the round-1 TPU build
-instead required the whole (F, N, 3) tensor resident on host and device.
-This module restores the streaming capability TPU-natively:
+(orderParam_lib.py:617 and every other driver loop); the first build of
+this package instead required the whole (F, N, 3) tensor resident on host
+and device. This module restores the streaming capability:
 
 - `LazyNetCDF` / `LazyDCD` read frame ranges straight from the mmap'd file
   (both formats store frames as fixed-stride records, so a chunk read is a

@@ -33,16 +33,36 @@ def _random_rotations(n: int, rs: np.random.RandomState) -> np.ndarray:
     )
 
 
-def water_oxygen_lattice(n_waters: int, box_len: float, seed: int = 0, jitter: float = 0.35):
-    """Jittered cubic lattice of oxygen positions filling a cubic box."""
+def _lattice_sites(n_waters: int, box_len: float, seed: int, jitter: float):
+    """(positions (n_waters, 3), cubic-grid cell of each, cells per side)."""
     rs = np.random.RandomState(seed)
     n_side = int(np.ceil(n_waters ** (1.0 / 3.0)))
     spacing = box_len / n_side
     grid = np.arange(n_side) * spacing + spacing / 2
     pts = np.stack(np.meshgrid(grid, grid, grid, indexing="ij"), -1).reshape(-1, 3)
-    pts = pts[rs.permutation(len(pts))[:n_waters]]
-    pts = pts + rs.uniform(-jitter, jitter, pts.shape) * spacing
-    return np.mod(pts, box_len)
+    cells = rs.permutation(len(pts))[:n_waters]
+    pts = pts[cells] + rs.uniform(-jitter, jitter, (n_waters, 3)) * spacing
+    return np.mod(pts, box_len), cells, n_side
+
+
+def water_oxygen_lattice(n_waters: int, box_len: float, seed: int = 0, jitter: float = 0.35):
+    """Jittered cubic lattice of oxygen positions filling a cubic box."""
+    return _lattice_sites(n_waters, box_len, seed, jitter)[0]
+
+
+def _hop(grid: np.ndarray, rs: np.random.RandomState, p_swap: float) -> None:
+    """One sweep of nearest-neighbour swaps on an (n, n, n) periodic grid of
+    molecule labels (-1 = empty cell), in place: along a random axis, cells
+    are paired by a random parity and each pair of occupied cells swaps its
+    molecules with probability `p_swap`."""
+    n = grid.shape[0]
+    g = np.moveaxis(grid, rs.randint(3), 0)  # a view: swaps write through
+    i = np.arange(rs.randint(2), 2 * (n // 2), 2)
+    j = (i + 1) % n
+    gi, gj = g[i].copy(), g[j].copy()
+    swap = (rs.uniform(size=gi.shape) < p_swap) & (gi >= 0) & (gj >= 0)
+    g[i] = np.where(swap, gj, gi)
+    g[j] = np.where(swap, gi, gj)
 
 
 def make_water_topology(n_waters: int, solute_elements: list[str] | None = None) -> Topology:
@@ -85,6 +105,7 @@ def make_water_box(
     seed: int = 0,
     solute_elements: list[str] | None = None,
     frame_jitter: float = 0.08,
+    diffusion: float = 0.0,
 ) -> tuple[Topology, Trajectory]:
     """Deterministic multi-frame box of rigid waters at the given density.
 
@@ -92,10 +113,17 @@ def make_water_box(
     frames add small random displacements (no physics, but realistic
     neighbor statistics). The optional solute is a compact chain of heavy
     atoms near the box center.
+
+    diffusion: self-diffusion coefficient in A^2/ps for frames saved 1 ps
+    apart (liquid water at 298 K: ~0.23). When positive, waters also hop
+    between neighbouring lattice sites by pairwise swaps, at the rate that
+    gives a mean squared displacement of 6 * diffusion per frame: molecules
+    wander across the box as in an MD trajectory, while the sites keep the
+    liquid-like neighbour statistics of frame 0.
     """
     box_len = (n_waters / density) ** (1.0 / 3.0)
     rs = np.random.RandomState(seed)
-    o_pos = water_oxygen_lattice(n_waters, box_len, seed=seed)
+    o_pos, cells, n_side = _lattice_sites(n_waters, box_len, seed, 0.35)
 
     # local water geometry: O at origin, H's in the xz plane
     h1 = np.array([OH_LEN * np.sin(HOH_ANG / 2), 0.0, OH_LEN * np.cos(HOH_ANG / 2)])
@@ -119,8 +147,25 @@ def make_water_box(
             close = r < 2.6
             o_pos[close] += (d[close].T / np.maximum(r[close], 1e-6) * (2.6 - r[close])).T
 
+    # site k sits in grid cell cells[k]; grid holds the molecule on each
+    # cell, so molecule m is at o_pos[site[m]]
+    site_of_cell = np.full(n_side**3, -1)
+    site_of_cell[cells] = np.arange(n_waters)
+    grid = np.full(n_side**3, -1)
+    grid[cells] = np.arange(n_waters)
+    grid = grid.reshape((n_side,) * 3)
+    hops = 6.0 * diffusion / (box_len / n_side) ** 2  # per molecule per frame
+    # few enough swaps per sweep that a molecule rarely swaps straight back
+    n_sweeps = int(np.ceil(hops / 0.2))
+    site = np.arange(n_waters)
     for f in range(n_frames):
-        o_f = o_pos + rs.normal(scale=frame_jitter, size=o_pos.shape)
+        if f > 0 and n_sweeps:
+            for _ in range(n_sweeps):
+                _hop(grid, rs, hops / n_sweeps)
+            flat = grid.reshape(-1)
+            occ = flat >= 0
+            site[flat[occ]] = site_of_cell[occ]
+        o_f = o_pos[site] + rs.normal(scale=frame_jitter, size=o_pos.shape)
         rots = _random_rotations(n_waters, rs)
         h1_f = o_f + rots @ h1
         h2_f = o_f + rots @ h2

@@ -26,9 +26,9 @@ def masked_histogram(
     """Histogram of `values[mask]` over [lo, hi] with np.histogram semantics:
     n_bins equal bins, left-inclusive, the final bin right-inclusive; values
     outside [lo, hi] are dropped."""
-    # TPU formulation: scatter-adds with many colliding indices are ~100x
-    # slower than compute, so the histogram is built from cumulative
-    # threshold counts cum[k] = #values < lo + k*width and differenced.
+    # Threshold formulation (no scatter-add): the histogram is built from
+    # cumulative threshold counts cum[k] = #values < lo + k*width and
+    # differenced.
     # Out-of-range values cancel in the differences; the right edge is
     # added to the last bin explicitly (np.histogram semantics).
     width = (hi - lo) / n_bins

@@ -1,6 +1,6 @@
 """Blocked all-pairs minimum-image distance engine.
 
-This single component is the TPU-native replacement for the reference's
+This single component is the JAX replacement for the reference's
 pairwise Fortran loops: `nearNeighbors`/`nearNeighbors2`/`nearNeighbors3`
 (/root/reference/fortran/waterlib.f90:710-826), `allNearNeighbors`
 (:830-862), `RadialDist`/`RadialDistSame` (:193-353),
@@ -193,9 +193,9 @@ def _hist_from_dsq(dsq, weights_mask, binwidth, nbins):
     (waterlib.f90:219): bin b (0-based) holds (b*w, (b+1)*w]. Zero distances
     fall in "bin -1" and are dropped, as are distances beyond nbins*w.
 
-    TPU formulation: scatter-adds with millions of colliding indices are
-    ~100x slower than compute on TPU, so the histogram is built from
-    cumulative threshold counts instead — cum[k] = #pairs with
+    Threshold formulation (no scatter-add; whether a bincount is faster on
+    the GPU is not measured yet): the histogram is built from cumulative
+    threshold counts — cum[k] = #pairs with
     dsq <= (k*w)^2 — and differenced. Comparing squared thresholds also
     removes the sqrt. Bin chunks bound the broadcast tensor.
     """
@@ -471,7 +471,7 @@ def radial_dist_plane(
     # left-multiplies; same operation)
     ref_z = (q @ (pos1[0] - pos1[0]))[2]  # = 0, kept for clarity
     p = pbc.minimum_image(pos2, box)
-    loc = p @ q.T  # (N, 3) coordinates in plane frame
+    loc = jnp.matmul(p, q.T, precision=jax.lax.Precision.HIGHEST)  # plane frame (N, 3)
     in_slab = (loc[:, 2] <= ref_z + 5.0) & (loc[:, 2] >= ref_z - 5.0)
     bx = jnp.ceil(loc[:, 0] / binwidth).astype(jnp.int32) - 1
     by = jnp.ceil(loc[:, 1] / binwidth).astype(jnp.int32) - 1

@@ -1,6 +1,6 @@
 """Three-body neighbor angles and tetrahedral metrics.
 
-TPU-native replacement for `getCosAngs`
+JAX replacement for `getCosAngs`
 (/root/reference/structureLibs/water_properties.py:210-250) and
 `tetrahedralMetrics` (wp:314-342). The reference builds a ragged, growing
 numpy array of angles by calling f2py `tetracosang` once per water; here all
@@ -102,32 +102,6 @@ def tetrahedral_metrics(
     tet = ok & (v >= 100.0) & (v <= 120.0)
     n_tet = jnp.sum(tet)
     cosv = jnp.cos(jnp.radians(v))
-    denom = jnp.maximum(n_tet, 1)
-    avg = jnp.sum(jnp.where(tet, cosv, 0.0)) / denom
-    var = jnp.sum(jnp.where(tet, (cosv - avg) ** 2, 0.0)) / denom
-    dens = hist / jnp.maximum(jnp.sum(hist), 1.0)
-    ent = -jnp.sum(jnp.where(dens > 0, dens * jnp.log(jnp.where(dens > 0, dens, 1.0)), 0.0))
-    frac = n_tet / jnp.maximum(n_tot, 1)
-    return TetMetrics(hist, frac, avg, var, ent, n_tot)
-
-
-def tetrahedral_metrics_flat(
-    ang: jnp.ndarray,
-    valid: jnp.ndarray,
-    n_bins: int = 500,
-    lo: float = 0.0,
-    hi: float = 180.0,
-) -> TetMetrics:
-    """`tetrahedral_metrics` over a flat (..., P) pair-angle tensor (the
-    layout produced by the fused Pallas 3-body kernel,
-    ops/pallas/angles_kernel.py) instead of an AngleSet."""
-    from waterorderlib_tpu.ops.histograms import masked_histogram
-
-    hist = masked_histogram(ang, valid, n_bins, lo, hi)
-    n_tot = jnp.sum(valid)
-    tet = valid & (ang >= 100.0) & (ang <= 120.0)
-    n_tet = jnp.sum(tet)
-    cosv = jnp.cos(jnp.radians(ang))
     denom = jnp.maximum(n_tet, 1)
     avg = jnp.sum(jnp.where(tet, cosv, 0.0)) / denom
     var = jnp.sum(jnp.where(tet, (cosv - avg) ** 2, 0.0)) / denom

@@ -1,6 +1,6 @@
 """Local structure index (LSI) of Shiratani & Sasai.
 
-TPU-native replacement for `getLSI`
+JAX replacement for `getLSI`
 (/root/reference/structureLibs/water_properties.py:252-311): per center,
 take all neighbors in the (low, high] shell plus the single nearest neighbor
 beyond `high` (searched in (high, high+3.7]), sort the minimum-image

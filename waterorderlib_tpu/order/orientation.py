@@ -54,7 +54,7 @@ def water_orientation_bin_z(
     o_pos = jnp.asarray(o_pos)
     ref = jnp.asarray(ref_vec, o_pos.dtype)
     ref = ref / jnp.linalg.norm(ref)
-    z = o_pos @ ref
+    z = jnp.matmul(o_pos, ref, precision=jax.lax.Precision.HIGHEST)
     dip, plane = geometry.water_orientation(o_pos, jnp.asarray(h_pos), ref, jnp.asarray(box))
     if ref_bins is None:
         ref_bins = np.arange(float(jnp.min(z)), float(jnp.max(z)), 0.2)

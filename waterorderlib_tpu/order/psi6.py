@@ -1,6 +1,6 @@
 """Hexagonal order parameter psi_6 (Dallin & Van Lehn 2019).
 
-TPU-native replacement for `getOrderParamPsi`
+JAX replacement for `getOrderParamPsi`
 (/root/reference/structureLibs/water_properties.py:393-433): for each center,
 psi = | mean over neighbor pairs of exp(6i * theta) | where theta is the
 3-body angle (degrees -> radians) between every pair of in-shell neighbors

@@ -1,6 +1,6 @@
 """Errington-Debenedetti tetrahedral order parameter q.
 
-TPU-native replacement for `getOrderParamq`
+JAX replacement for `getOrderParamq`
 (/root/reference/structureLibs/water_properties.py:344-391). The reference
 loops over waters in Python, calling f2py `reimage`/`tetracosang` per center;
 here the 4-nearest-neighbor search is a blocked on-device top-k and the
@@ -19,11 +19,18 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from waterorderlib_tpu.core import pbc
 from waterorderlib_tpu.ops import pairs
+from waterorderlib_tpu.utils.logging import log_once
 
 _PAIR_I, _PAIR_J = jnp.triu_indices(4, k=1)  # the 6 neighbor pairs
+
+# the windowed GPU path: rows whose 4th neighbour lies within MARGIN are
+# certified; 32-row tiles were the fastest on the H100 (PERF.md)
+MARGIN = 4.5
+ROW_TILE = 32
 
 
 def q_from_neighbors(
@@ -45,69 +52,6 @@ def q_from_neighbors(
 
 
 @partial(jax.jit, static_argnames=("row_block",))
-def order_param_q_fused(
-    sub: jnp.ndarray,
-    pos: jnp.ndarray,
-    box: jnp.ndarray,
-    low_cut: float = 0.0,
-    high_cut: float = 10.0,
-    row_block: int = pairs.DEFAULT_ROW_BLOCK,
-) -> jnp.ndarray:
-    """Fused q computation: distance block -> iterative 4-minimum extraction
-    -> pair angles, in one pass per row block.
-
-    Numerically identical to order_param_q but avoids the sort-based
-    lax.top_k and the separate neighbor gather: for k = 4 rounds, the row
-    minimum of the masked distance block is located, its displacement vector
-    extracted with a one-hot reduction, and the slot masked out. This is
-    O(4N) VPU work per row instead of an O(N log N) sort, and the
-    displacement tensor is consumed in-place — the hot path of the
-    benchmark (replaces waterlib.f90:830-862 + water_properties.py:364-388).
-    """
-    n = pos.shape[0]
-    low_sq = low_cut * low_cut
-    high_sq = high_cut * high_cut
-
-    def one_block(rows):
-        disp = pbc.minimum_image(pos[None, :, :] - rows[:, None, :], box)  # (B,N,3)
-        dsq = jnp.sum(disp * disp, axis=-1)  # (B, N)
-        valid = (dsq > low_sq) & (dsq <= high_sq)
-        count = jnp.sum(valid, axis=-1)
-        d = jnp.where(valid, dsq, jnp.inf)
-        col = jax.lax.broadcasted_iota(jnp.int32, d.shape, 1)
-        vecs = []
-        oks = []
-        for _ in range(4):
-            m = jnp.min(d, axis=1, keepdims=True)  # (B,1)
-            eq = (d == m) & jnp.isfinite(d)
-            # first occurrence on ties
-            first_col = jnp.min(jnp.where(eq, col, n), axis=1, keepdims=True)
-            first = eq & (col == first_col)
-            w = first.astype(disp.dtype)
-            v = jnp.einsum("bn,bnd->bd", w, disp)
-            vecs.append(v)
-            oks.append(jnp.any(first, axis=1))
-            d = jnp.where(first, jnp.inf, d)
-        v4 = jnp.stack(vecs, axis=1)  # (B, 4, 3)
-        ok4 = jnp.stack(oks, axis=1)  # (B, 4)
-        norm = jnp.linalg.norm(v4, axis=-1)
-        unit = v4 / jnp.where(norm > 0, norm, 1.0)[..., None]
-        cosmat = jnp.einsum(
-            "bid,bjd->bij", unit, unit, precision=jax.lax.Precision.HIGHEST
-        )
-        cos_pairs = cosmat[:, _PAIR_I, _PAIR_J]
-        pair_ok = ok4[:, _PAIR_I] & ok4[:, _PAIR_J]
-        cos_pairs = jnp.where(pair_ok, cos_pairs, -1.0)
-        q = 1.0 - (3.0 / 8.0) * jnp.sum((cos_pairs + 1.0 / 3.0) ** 2, axis=-1)
-        return jnp.where(count > 0, q, 0.0)
-
-    block = min(row_block, max(1, sub.shape[0]))
-    padded, ns = pairs._pad_rows(sub, block)
-    q = jax.lax.map(one_block, pairs._block_rows(padded, block))
-    return q.reshape(-1)[:ns]
-
-
-@partial(jax.jit, static_argnames=("row_block",))
 def order_param_q(
     sub: jnp.ndarray,
     pos: jnp.ndarray,
@@ -125,3 +69,94 @@ def order_param_q(
         sub, pos, box, k=4, low_cut=low_cut, high_cut=high_cut, row_block=row_block
     )
     return q_from_neighbors(sub, neigh, pos, box)
+
+
+@partial(jax.jit, static_argnames=("row_block",))
+def order_param_q_traj(pos, boxes, low_cut=0.0, high_cut=10.0,
+                       row_block=pairs.DEFAULT_ROW_BLOCK):
+    """`order_param_q` of every frame of a (F, N, 3) trajectory -> (F, N)."""
+    return jax.lax.map(
+        lambda a: order_param_q(a[0], a[0], a[1], low_cut, high_cut, row_block),
+        (pos, boxes),
+    )
+
+
+@partial(jax.jit, static_argnames=("row_tile", "window", "pad", "interpret"))
+def order_param_q_windowed(pos, boxes, low_cut, high_cut, margin, *, row_tile,
+                           window, pad, interpret=False):
+    """q from the windowed GPU neighbour kernel: (q (F, N), exact (F, N),
+    covered (F,)). The epilogue is `q_from_neighbors`, as on the XLA path."""
+    from waterorderlib_tpu.ops.gpu import window_knn
+
+    nb = window_knn.knn_traj(
+        pos, boxes, low_cut, high_cut, margin, k=4, row_tile=row_tile,
+        window=window, pad=pad, interpret=interpret,
+    )
+    q = jax.vmap(q_from_neighbors)(pos, nb.neigh, pos, boxes)
+    return q, nb.exact, nb.covered
+
+
+def order_param_q_certified(pos, boxes, low_cut=0.0, high_cut=10.0, interpret=False):
+    """q (F, N) of a whole trajectory through the windowed GPU kernel, with
+    certified exactness (host-level: checks certificates, not jittable).
+    Returns (q, tier): which path served the call, "window", "window+patch"
+    or "xla" (drivers log it).
+
+    Rows whose certificate fails (4th neighbour beyond MARGIN, a few per
+    million in condensed phases) are recomputed on the XLA path and patched
+    in. A window that missed part of its slab (a sparse or strongly layered box), or
+    more than 0.1% of rows uncertified, sends the whole call to the XLA
+    all-pairs path `order_param_q_traj`, with a log entry.
+    """
+    from waterorderlib_tpu.ops import slab
+
+    pos = jnp.asarray(pos)
+    boxes = jnp.asarray(boxes)
+    n = pos.shape[1]
+    box_z = float(boxes[0, 2])
+    window = slab.suggest_window(n, box_z, margin=MARGIN, row_tile=ROW_TILE)
+    pad = slab.suggest_pad(n, box_z, MARGIN)
+    reason = "window would not prune"
+    if window < n and n >= 128:
+        q, exact, covered = order_param_q_windowed(
+            pos, boxes, low_cut, high_cut, MARGIN, row_tile=ROW_TILE,
+            window=window, pad=pad, interpret=interpret,
+        )
+        reason = "window coverage certificate failed"
+        if bool(jnp.all(covered)):
+            n_bad = int(jnp.sum(~exact))
+            if n_bad == 0:
+                return q, "window"
+            reason = f"{n_bad} rows uncertified"
+            if n_bad < 1e-3 * exact.size:
+                bad = np.argwhere(~np.asarray(exact))
+                q = q.at[bad[:, 0], bad[:, 1]].set(
+                    _q_rows(pos, boxes, bad, low_cut, high_cut)
+                )
+                return q, "window+patch"
+    log_once(
+        ("order_param_q_certified", reason),
+        "order_param_q_certified: %s; serving the XLA all-pairs path", reason,
+        level="warning",
+    )
+    return order_param_q_traj(pos, boxes, low_cut, high_cut), "xla"
+
+
+def _q_rows(pos, boxes, rows, low_cut, high_cut):
+    """q of selected (frame, atom) rows on the XLA path; the row count is
+    padded to a power of two so straggler patches reuse one compile."""
+    m = len(rows)
+    size = max(8, 1 << int(np.ceil(np.log2(m))))
+    rows = np.concatenate([rows, np.repeat(rows[:1], size - m, axis=0)])
+    q = _q_rows_jit(pos, boxes, jnp.asarray(rows[:, 0]), jnp.asarray(rows[:, 1]),
+                    low_cut, high_cut)
+    return q[:m]
+
+
+@jax.jit
+def _q_rows_jit(pos, boxes, f, i, low_cut, high_cut):
+    def one(fi):
+        p, b = pos[fi[0]], boxes[fi[0]]
+        return order_param_q(p[fi[1]][None], p, b, low_cut, high_cut, row_block=1)[0]
+
+    return jax.lax.map(one, (f, i))

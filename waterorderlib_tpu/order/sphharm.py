@@ -1,7 +1,7 @@
 """Spherical-harmonic neighborhood coefficients (Steinhardt / Keys-Iacovella-
 Glotzer order parameters).
 
-TPU-native replacement for `computeSphericalFourierCoeffs`
+JAX replacement for `computeSphericalFourierCoeffs`
 (/root/reference/structureLibs/water_properties.py:722-786): for each center,
 the complex coefficient vector q_lm = mean over shell neighbors of
 Y_lm(theta, phi), for l = minDegree..maxDegree, m = -l..l, packed exactly
@@ -15,9 +15,9 @@ upward-in-l recurrence together on (M+1, Ns, K) tensors (13 fused steps for
 l <= 12 instead of ~91 per-(l, m) op chains — the round-2 serial version
 cost 153 ms/frame at 4k centers). Inactive columns (m > l) hold zeros until
 their seeding step, so no masking junk ever enters the recurrence. The
-device computation is entirely REAL float32 (this TPU backend does not
-implement complex arithmetic); real/imaginary parts are assembled into the
-complex result on the host.
+device computation is entirely REAL float32 (no complex arithmetic on the
+device); real/imaginary parts are assembled into the complex result on the
+host.
 """
 
 from __future__ import annotations
@@ -118,8 +118,10 @@ def _coeff_sums_mpos(
             jnp.where(jnp.asarray(is_seed)[:, None, None], seed1, gen),
         )
         base = jnp.asarray(norms[l])[:, None, None] * p_l  # (M+1, Ns, K)
-        re_rows.append(jnp.einsum("mnk,nk->mn", base * cosm, wn))
-        im_rows.append(jnp.einsum("mnk,nk->mn", base * sinm, wn))
+        # HIGHEST: a default f32 contraction may run in TF32 on a GPU
+        hi = jax.lax.Precision.HIGHEST
+        re_rows.append(jnp.einsum("mnk,nk->mn", base * cosm, wn, precision=hi))
+        im_rows.append(jnp.einsum("mnk,nk->mn", base * sinm, wn, precision=hi))
         p_lm2 = p_lm1
         p_lm1 = p_l
     re = jnp.stack(re_rows, axis=0)  # (L_all, M+1, Ns)
@@ -175,8 +177,8 @@ def spherical_fourier_coeffs(
     row_block: int = pairs.DEFAULT_ROW_BLOCK,
 ):
     """Reference-shaped API: returns (coeffs (Ns, L, W) complex64 as a host
-    numpy array, counts (Ns,)). The complex assembly happens on host because
-    this TPU backend lacks complex arithmetic."""
+    numpy array, counts (Ns,)). The complex assembly happens on host, which
+    keeps the device computation real."""
     re, im, counts = spherical_fourier_coeffs_real(
         jnp.asarray(sub), jnp.asarray(pos), jnp.asarray(box),
         low_cut, high_cut, min_degree, max_degree, k, row_block,

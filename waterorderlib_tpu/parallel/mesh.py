@@ -1,17 +1,19 @@
 """Device-mesh sharding for trajectory analysis.
 
 The reference is single-process/single-thread (no MPI, no threading anywhere
-in its tree — SURVEY.md §2c); the TPU-native scaling story replaces that gap:
+in its tree — SURVEY.md §2c); device meshes replace that gap:
 
 - **frames axis = data parallelism**: each device processes a slice of the
   trajectory; per-frame statistics stay local, global histograms are
   `psum`-reduced over the mesh.
 - **atoms axis = tensor parallelism within a frame**: rows of the pairwise
   distance computation are sharded; each shard `all_gather`s the column
-  atoms (rides ICI) and computes its row block of neighbors/order params.
+  atoms (over NVLink between cards) and computes its row block of
+  neighbors/order params.
 
 Everything is expressed with `jax.sharding.Mesh` + `shard_map`, so the same
-code runs on 1 chip, a v5e-8 slice, or a spoofed 8-device CPU mesh in tests.
+code runs on one GPU, four GPUs of one host, or a spoofed 8-device CPU
+mesh in tests.
 """
 
 from __future__ import annotations
@@ -576,7 +578,7 @@ def sharded_msd(
     jax.jit,
     static_argnames=(
         "mesh", "num", "k", "k_search", "row_block", "eps", "win",
-        "topk_impl", "topk_seg", "cell_impl", "mirror_budget", "cg",
+        "topk_impl", "cell_impl", "mirror_budget", "cg",
     ),
 )
 def sharded_voronoi_tier1(
@@ -591,7 +593,6 @@ def sharded_voronoi_tier1(
     eps: float,
     win: int,
     topk_impl: str,
-    topk_seg: int,
     cell_impl: str,
     mirror_budget: int = 0,
     cg=None,
@@ -614,7 +615,7 @@ def sharded_voronoi_tier1(
             p, b = args
             return vd._tier1_pure(
                 p, b, num, k, k_search, row_block, eps, win, topk_impl,
-                topk_seg, cell_impl, mirror_budget, cg,
+                cell_impl, mirror_budget, cg,
             )
 
         return jax.lax.map(one, (pos_blk, bl_blk))
@@ -633,7 +634,7 @@ def sharded_voronoi_tier1(
     jax.jit,
     static_argnames=(
         "mesh", "num", "k", "k_search", "row_block", "eps", "win",
-        "topk_impl", "topk_seg", "cell_impl", "mirror_budget", "cg",
+        "topk_impl", "cell_impl", "mirror_budget", "cg",
     ),
 )
 def sharded_voronoi_contacts_tier1(
@@ -649,7 +650,6 @@ def sharded_voronoi_contacts_tier1(
     eps: float,
     win: int,
     topk_impl: str,
-    topk_seg: int,
     cell_impl: str,
     mirror_budget: int = 0,
     cg=None,
@@ -666,7 +666,7 @@ def sharded_voronoi_contacts_tier1(
             p, b = args
             return vd._tier1_contacts_full(
                 p, b, sel_rep, num, k, k_search, row_block, eps, win,
-                topk_impl, topk_seg, cell_impl, mirror_budget, cg,
+                topk_impl, cell_impl, mirror_budget, cg,
             )
 
         return jax.lax.map(one, (pos_blk, bl_blk))

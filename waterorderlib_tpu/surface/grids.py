@@ -3,7 +3,7 @@
 Replaces `sasaGrid` (/root/reference/structureLibs/surface_library.py:120-167),
 `densityGrid` (:170-210) and `densityVoxel` (:213-241). The scalar fields
 (signed SASA distance, Willard-Chandler density, raw box-count density) are
-computed on device by the blocked grid kernels; isosurface extraction runs
+computed on device by the blocked XLA grid sweeps; isosurface extraction runs
 host-side marching tetrahedra (surface.mesh) since no Qhull/skimage exists
 in this stack.
 """
@@ -61,53 +61,11 @@ def density_grid(
     spacing = span[1] - span[0]
     g = span[:-1] + spacing  # the reference drops the first edge (:192-194)
     n = len(g)
-    import jax
-
-    if jax.devices()[0].platform == "tpu":
-        # z-slab grid kernel first (certified; ~10x the points kernel),
-        # generic points kernel as the fallback
-        from waterorderlib_tpu.ops.pallas.willard_grid import (
-            suggest_window_x,
-            willard_density_grid,
-        )
-
-        g0, dg = float(g[0]), float(spacing)
-        box_x = float(np.asarray(box).reshape(-1)[0])
-        wx, px = suggest_window_x(len(wat_pos), box_x, smoothlen=smoothlen)
-        covered = False
-        try:
-            dens, _, covered = willard_density_grid(
-                jnp.asarray(wat_pos, jnp.float32),
-                jnp.asarray(box, jnp.float32).reshape(-1),
-                g0, dg, n, g0, dg, n, g0, dg, n, smoothlen,
-                window_x=wx, pad_x=px,
-            )
-            covered = bool(covered)
-        except (ImportError, ValueError, jax.errors.JaxRuntimeError) as e:
-            # ValueError: Mosaic lowering failures raise it (round 4)
-            from waterorderlib_tpu.utils.logging import get_logger
-
-            get_logger().warning(
-                "willard grid kernel failed (%s: %s); falling back to the "
-                "points kernel", type(e).__name__, e,
-            )
-        if not bool(covered):
-            from waterorderlib_tpu.ops.pallas.willard_kernel import (
-                willard_density_points_pallas,
-            )
-
-            pts = jnp.asarray(fields.make_grid(g, g, g), jnp.float32)
-            dens, _ = willard_density_points_pallas(
-                jnp.asarray(wat_pos, jnp.float32), pts,
-                jnp.asarray(box, jnp.float32).reshape(-1), smoothlen,
-            )
-            dens = dens.reshape(n, n, n)
-    else:
-        dens, _ = fields.willard_density_field(
-            jnp.asarray(wat_pos, jnp.float32),
-            jnp.asarray(g, jnp.float32), jnp.asarray(g, jnp.float32), jnp.asarray(g, jnp.float32),
-            jnp.asarray(box, jnp.float32).reshape(-1), smoothlen, nx=n, ny=n, nz=n,
-        )
+    dens, _ = fields.willard_density_field(
+        jnp.asarray(wat_pos, jnp.float32),
+        jnp.asarray(g, jnp.float32), jnp.asarray(g, jnp.float32), jnp.asarray(g, jnp.float32),
+        jnp.asarray(box, jnp.float32).reshape(-1), smoothlen, nx=n, ny=n, nz=n,
+    )
     verts, faces = marching_tetrahedra(
         np.asarray(dens), level, spacing=(spacing,) * 3, origin=(0.0, 0.0, 0.0)
     )

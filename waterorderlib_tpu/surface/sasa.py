@@ -1,6 +1,6 @@
 """Solvent-accessible surface area (Shrake-Rupley) kernels.
 
-TPU-native replacements for `SpherePoints`/`SphereSurfaceAreas`/
+JAX replacements for `SpherePoints`/`SphereSurfaceAreas`/
 `SphereVolumes` (/root/reference/fortran/waterlib.f90:68-187), the
 `SASAperAtom` wrapper (/root/reference/structureLibs/water_properties.py:59-74)
 and `sasaCalc` (/root/reference/structureLibs/surface_library.py:394-423).
@@ -13,7 +13,6 @@ spheres at once.
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -170,51 +169,10 @@ def sasa_per_atom(
     pos = jnp.asarray(pos)
     rad = jnp.asarray(radii) + probe_radius
     box = jnp.asarray(box)
-    # The fused MXU occlusion kernel is QUARANTINED behind an explicit
-    # opt-in, for SPEED only: with Precision.HIGHEST on the occlusion
-    # matmul it is bit-exact vs this XLA oracle on the chip (round 4:
-    # maxabs area diff 0.0 at 4k; the earlier 0.53 A^2 wrongness was the
-    # bf16-default MXU product compared against an exactly-computed
-    # threshold), but exactness costs 103.5 ms at 4k vs the XLA
-    # occluder-pruned sweep's 53.8 ms.
-    pruned_cert_failed = False
-    if (
-        os.environ.get("WOL_SASA_MXU") == "1"
-        and jax.devices()[0].platform == "tpu"
-        and pos.dtype == jnp.float32
-        and pos.shape[0] >= 512
-    ):
-        try:
-            from waterorderlib_tpu.ops.pallas.sasa_kernel import (
-                sphere_areas_pallas,
-            )
-
-            areas, exposed, ok = sphere_areas_pallas(
-                pos, rad, pts, box, n_expose
-            )
-            jax.block_until_ready(areas)
-            if bool(ok):
-                _log_tier_once("pallas-mxu")
-                return areas, exposed
-            # the certificate (all occluder counts <= K, from the same
-            # topk_neighbors call with the same K) is shared with the XLA
-            # pruned sweep — re-running that sweep would fail it again
-            pruned_cert_failed = True
-        except (ImportError, ValueError, jax.errors.JaxRuntimeError) as e:
-            # ValueError: Mosaic lowering failures raise it (round 4)
-            from waterorderlib_tpu.utils.logging import get_logger
-
-            get_logger().warning(
-                "sasa pallas kernel failed (%s: %s); falling back to the "
-                "XLA occluder-pruned sweep", type(e).__name__, e,
-            )
-    if not pruned_cert_failed:
-        areas, exposed, ok = sphere_surface_areas_topk(
-            pos, rad, pts, box, n_expose
-        )
-        if bool(ok):
-            _log_tier_once("xla-topk")
-            return areas, exposed
+    areas, exposed, ok = sphere_surface_areas_topk(pos, rad, pts, box, n_expose)
+    if bool(ok):
+        _log_tier_once("xla-topk")
+        return areas, exposed
     _log_tier_once("xla-brute")
     return sphere_surface_areas(pos, rad, pts, box, n_expose)
 
